@@ -15,10 +15,14 @@ time is never printed as a device number.
 
 ``--json PATH`` also writes the rows (plus totals) as JSON;
 ``--experiments name1,name2`` restricts the registry suite (unknown names
-fail with the registered list).
+fail with the registered list).  ``--engines N|MIX``, ``--arbitration
+POLICY`` and ``--burst B`` override the contention experiments' engine
+ladder (or custom engine mix) and grant granularity, as in the
+reference's CLI.
 
 Run: PYTHONPATH=src python -m repro_torch.bench [--quick] [--json PATH]
-         [--experiments NAMES]
+         [--experiments NAMES] [--engines N|MIX]
+         [--arbitration POLICY [--burst B]]
 """
 from __future__ import annotations
 
@@ -66,10 +70,47 @@ def resolve_experiments(names):
         raise SystemExit(f"repro_torch.bench: {e}")
 
 
-def bench_experiments(quick=False, experiments=None):
+def engine_ladder(max_engines):
+    """The --engines N override: powers of two up to (and including) N."""
+    if max_engines < 1:
+        raise SystemExit(
+            f"repro_torch.bench: --engines must be >= 1, got {max_engines}")
+    ladder = []
+    k = 1
+    while k < max_engines:
+        ladder.append(k)
+        k *= 2
+    ladder.append(max_engines)
+    return tuple(ladder)
+
+
+def parse_engines_arg(text):
+    """Resolve the --engines value: a bare integer N (engine-count ladder)
+    or a heterogeneous mix spec like '2r+1w+1d' (DESIGN.md §13).  Returns
+    the int for the ladder form, the validated spec string for the mix
+    form; exits with the accepted grammar on anything else."""
+    from repro_torch.core.engine_mix import parse_mix_spec
+
+    if text.isdigit():
+        n = int(text)
+        engine_ladder(n)        # validates >= 1 up front, not per suite
+        return n
+    try:
+        parse_mix_spec(text)
+    except ValueError as e:
+        raise SystemExit(f"repro_torch.bench: --engines: {e}")
+    return text
+
+
+def bench_experiments(quick=False, experiments=None, engines=None,
+                      arbitration=None, burst=None):
     """One row per (registered experiment, applicable spec), on `sim`.
     Single-spec experiments keep their bare row name; multi-spec ones are
-    suffixed with the spec."""
+    suffixed with the spec.  `engines` (--engines) replaces the engine
+    ladder of every experiment with an "engines" option when an int, or
+    the custom blend of every experiment with a "custom_mix" option when
+    a mix spec; `arbitration`/`burst` (--arbitration/--burst) select the
+    grant granularity for every experiment exposing that axis."""
     from repro_torch.core import spec_by_name
     from repro_torch.core.experiments import run_experiment
 
@@ -79,9 +120,23 @@ def bench_experiments(quick=False, experiments=None):
                  for n in (exp.bench_specs or BENCH_SPEC_NAMES)]
         available = [s for s in specs if exp.available_on(s)]
         label = exp.bench_label or exp.name
+        overrides = {}
+        if isinstance(engines, int) and "engines" in exp.defaults:
+            overrides["engines"] = engine_ladder(engines)
+        elif isinstance(engines, str) and "custom_mix" in exp.defaults:
+            overrides["custom_mix"] = engines
+        if arbitration is not None and "arbitration" in exp.defaults:
+            overrides["arbitration"] = arbitration
+            if arbitration != "burst" and "burst_beats" in exp.defaults:
+                # round_robin/exclusive fix the grant size; an
+                # experiment's default burst_beats (e.g. the contended-
+                # latency classes' 8) would fail validation.
+                overrides["burst_beats"] = 1
+        if burst is not None and "burst_beats" in exp.defaults:
+            overrides["burst_beats"] = burst
         for spec in available:
             res, dt = _timed(lambda: run_experiment(
-                exp, spec, quick=quick, bench=True))
+                exp, spec, quick=quick, bench=True, **overrides))
             name = label if len(available) == 1 else f"{label}_{spec.name}"
             rows.append((name, dt, exp.summary(spec, res)))
     return rows
@@ -148,7 +203,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="comma-separated experiment names to benchmark "
                          "(default: every registered experiment); unknown "
                          "names fail with the registered list")
+    ap.add_argument("--engines", metavar="N|MIX", default=None,
+                    help="override the engine-count ladder of the "
+                         "contention experiments with powers of two up to "
+                         "N (e.g. 16 -> 1,2,4,8,16), or — as a mix spec "
+                         "like 2r+1w+1d — the custom blend of the "
+                         "engine-mix experiments (DESIGN.md §13)")
+    ap.add_argument("--arbitration", metavar="POLICY", default=None,
+                    choices=("round_robin", "burst", "exclusive"),
+                    help="shared-port arbitration granularity for every "
+                         "experiment exposing the axis (DESIGN.md §9): "
+                         "round_robin, burst, or exclusive")
+    ap.add_argument("--burst", type=int, metavar="B", default=None,
+                    help="beats per arbitration grant (with "
+                         "--arbitration burst)")
     args = ap.parse_args(argv)
+    if args.engines is not None:
+        args.engines = parse_engines_arg(args.engines)
+    if args.burst is not None and args.burst < 1:
+        ap.error(f"--burst must be >= 1, got {args.burst}")
+    if args.burst is not None and args.arbitration != "burst":
+        ap.error("--burst only applies with --arbitration burst "
+                 "(round_robin and exclusive fix the grant size)")
     q = args.quick
     if args.json:
         json_dir = os.path.dirname(os.path.abspath(args.json))
@@ -157,7 +233,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     print("name,us_per_call,derived")
     suites = [
-        lambda: bench_experiments(q, args.experiments),
+        lambda: bench_experiments(q, args.experiments, args.engines,
+                                  args.arbitration, args.burst),
         bench_table3_resources,
         lambda: bench_h100_rst_kernel(q),
     ]

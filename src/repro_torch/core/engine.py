@@ -9,8 +9,9 @@ one execution substrate and registers itself by name.  Two ship built in:
 * ``sim``  — the calibrated DRAM timing model (reproduces the paper's
              U280 numbers on the host);
 * ``cuda`` — the RST engines as hand-written CUDA kernels
-             (kernels/rst_read.py, rst_write.py) on the card; their plain
-             PyTorch versions serve a backend built with ``device="cpu"``.
+             (kernels/rst_read.py, rst_write.py, rst_contend.py) on the
+             card; their plain PyTorch versions serve a backend built
+             with ``device="cpu"``.
 
 `register_backend` adds a third; everything above (Engine, Sweep, the
 experiment registry) resolves backends through `get_backend` — see
@@ -374,27 +375,37 @@ class SimBackend(Backend):
 
 class CudaBackend(Backend):
     """The RST engines on the CUDA card (kernels/rst_read.py,
-    rst_write.py).
+    rst_write.py, rst_contend.py).
 
     All three traffic directions are wired: ``read`` -> rst_read,
     ``write`` -> rst_write, ``duplex`` -> both over one buffer
-    (ops.measure_duplex_bandwidth).  The kernels traverse a working buffer
-    through the card's own memory controller, so `spec` and `mapping` are
-    ignored.  `device` is the card by default; ``device="cpu"`` runs the
-    kernels' plain PyTorch versions (a correctness path whose seconds are
-    host time, not a device measurement).  Latency raises: the card has no
-    per-transaction timers.  Multi-engine contention waits for its
-    kernels (rst_contend_read / rst_contend_mix_read), so
-    ``supports_contention`` is False and `contended_throughput` raises.
+    (ops.measure_duplex_bandwidth).  Multi-engine read contention runs
+    rst_contend_read, and a heterogeneous mix of readers
+    rst_contend_mix_read; their data path is read-only, so write and
+    duplex contention raise as on the reference's `pallas` backend.  The
+    kernels traverse a working buffer through the card's own memory
+    controller, so `spec` and `mapping` are ignored.  `device` is the
+    card by default; ``device="cpu"`` runs the kernels' plain PyTorch
+    versions (a correctness path whose seconds are host time, not a
+    device measurement).  Latency raises: the card has no
+    per-transaction timers.
     """
 
     name = "cuda"
     deterministic = False
     supports_latency = False
-    supports_contention = False
+    supports_contention = True
 
     def __init__(self, device: "torch.device | str | None" = None):
         self.device = device
+
+    @staticmethod
+    def _detail(sample) -> Dict[str, float]:
+        # The checksum's sum lets a caller check that the kernels touched
+        # the bytes they were asked to move.
+        return {"seconds": sample.seconds,
+                "bytes": float(sample.bytes_moved),
+                "checksum": float(np.sum(sample.checksum, dtype=np.float64))}
 
     def throughput(self, spec, p, mapping, *, op="read"):
         del spec, mapping  # the device's controller, not the model's
@@ -409,14 +420,50 @@ class CudaBackend(Backend):
                 f"unknown op {op!r} for the cuda backend; valid: "
                 f"{sorted(measurers)}")
         sample = measurers[op](p, device=self.device)
-        # The checksum's sum lets a caller check that the kernels touched
-        # the bytes they were asked to move.
         return timing_model.ThroughputResult(
-            gbps=sample.gbps, bound="measured",
-            detail={"seconds": sample.seconds,
-                    "bytes": float(sample.bytes_moved),
-                    "checksum": float(np.sum(sample.checksum,
-                                             dtype=np.float64))})
+            gbps=sample.gbps, bound="measured", detail=self._detail(sample))
+
+    def contended_throughput(self, spec, p, mapping, *, num_engines,
+                             op="read", arbitration="round_robin",
+                             burst_beats=1, mix=None):
+        del spec, mapping  # the device's controller, not the model's
+        from repro_torch.kernels import ops  # deferred, as in throughput
+        if mix is not None:
+            # The contention kernels gather per-engine RST tuples from an
+            # operand table, but their data path is read-only: engines
+            # that drive writes (write/duplex entries) route through the
+            # model backends, whose placement paths cap them against the
+            # fabric capacity terms (DESIGN.md §13).
+            if any(op_k != "read" for op_k in mix.ops):
+                raise ValueError(
+                    f"the concurrent-access cuda kernel measures read "
+                    f"traffic only, got mix {mix.describe()!r} with ops "
+                    f"{sorted(set(mix.ops))}; route write/duplex engines "
+                    f"through the sim placement paths (DESIGN.md §13)")
+            sample = ops.measure_contended_mix_bandwidth(
+                mix, arbitration=arbitration, burst_beats=burst_beats,
+                device=self.device)
+            num_engines = len(mix)
+        elif op != "read":
+            raise ValueError(
+                f"the concurrent-access cuda kernel measures read "
+                f"traffic only, got op={op!r}; use the sim backend for "
+                f"write/duplex contention (DESIGN.md §8)")
+        else:
+            sample = ops.measure_contended_bandwidth(
+                p, num_engines=num_engines, arbitration=arbitration,
+                burst_beats=burst_beats, device=self.device)
+        return timing_model.ContentionResult(
+            num_engines=num_engines,
+            aggregate_gbps=sample.gbps,
+            bound="measured",
+            # A timed sample cannot separate arbitration wait from
+            # service time; NaN marks "not measured", not zero.
+            queueing_delay_cycles=float("nan"),
+            detail=self._detail(sample),
+            arbitration=arbitration,
+            burst_beats=burst_beats,
+            mix=mix)
 
 
 _BACKEND_REGISTRY: Dict[str, Backend] = {}

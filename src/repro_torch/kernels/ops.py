@@ -4,11 +4,13 @@ buffers and bandwidth measurement.
 This is the device-side counterpart of the paper's parameter module: it
 packs :class:`repro_torch.core.params.RSTParams` (byte-level, as the host
 thinks of them) into the int32[4] operand (tile-level, as the engines
-consume it) and runs the kernels.  ``measure_read_bandwidth`` is what the
-`cuda` backend of core/engine.py calls.  On the card the number is the
-achieved device-memory bandwidth of one RST stream spread over every SM,
-timed with CUDA events; with ``device="cpu"`` the plain PyTorch versions
-run and the seconds are host time, good for checking results only.
+consume it) and runs the kernels.  ``measure_read_bandwidth`` and its
+siblings are what the `cuda` backend of core/engine.py calls, the
+``measure_contended_*`` pair for multi-engine contention.  On the card the
+number is the achieved device-memory bandwidth of one RST stream (or of N
+grant-interleaved ones) spread over every SM, timed with CUDA events;
+with ``device="cpu"`` the plain PyTorch versions run and the seconds are
+host time, good for checking results only.
 """
 from __future__ import annotations
 
@@ -20,9 +22,13 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.engine_mix import EngineMix
 from repro_torch.core.params import RSTParams
 from repro_torch.core.rst import block_params
+from repro_torch.core.timing_model import _grant_beats
 from repro_torch.device import resolve_device
+from repro_torch.kernels.rst_contend import (rst_contend_mix_read,
+                                             rst_contend_read)
 from repro_torch.kernels.rst_read import LANE, SUBLANE, rst_read
 from repro_torch.kernels.rst_write import rst_write
 
@@ -111,9 +117,10 @@ def make_working_buffer(p: RSTParams, dtype: torch.dtype,
     offset too), with W times `num_engines` for the contention kernels'
     disjoint per-engine windows.
 
-    Without a generator the content is ``index % 251``, computed in
-    integers (the reference computes it in float32, which agrees below
-    2**24 elements); with one, standard normal values drawn from it.
+    Without a generator the content is ``index % 251`` computed as the
+    reference computes it: the index converted to float32 (rounded to
+    nearest even above 2**24 elements, as XLA's iota rounds), then a
+    float32 remainder; with one, standard normal values drawn from it.
     """
     dev = resolve_device(device)
     span = p.a + num_engines * p.w
@@ -121,10 +128,20 @@ def make_working_buffer(p: RSTParams, dtype: torch.dtype,
     if rows * LANE * dtype.itemsize != span:
         raise ValueError(
             f"A+{num_engines}*W={span} not a whole number of ({LANE},) rows")
+    return _fill_buffer(rows, dtype, generator, dev)
+
+
+def _fill_buffer(rows: int, dtype: torch.dtype,
+                 generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """(rows, LANE) of the default content, or standard normal values
+    drawn from `generator`."""
     if generator is None:
-        base = torch.arange(rows * LANE, dtype=torch.int64, device=dev) % 251
-        return base.to(torch.float32).reshape(rows, LANE).to(dtype)
-    return torch.randn((rows, LANE), generator=generator, device=dev,
+        index = torch.arange(rows * LANE, dtype=torch.int64, device=device)
+        # fmod of non-negative float32 values is exact.
+        base = torch.fmod(index.to(torch.float32), 251.0)
+        return base.reshape(rows, LANE).to(dtype)
+    return torch.randn((rows, LANE), generator=generator, device=device,
                        dtype=torch.float32).to(dtype)
 
 
@@ -196,6 +213,184 @@ def measure_read_bandwidth(p: RSTParams, *, dtype: torch.dtype = torch.float32,
     seconds = time_median(run, dev)
     return BandwidthSample(bytes_moved=min(p.n, grid) * p.b, seconds=seconds,
                            checksum=out.cpu().numpy())
+
+
+def contended_params_operand(p: RSTParams, num_engines: int,
+                             dtype: torch.dtype, burst_rows: int = SUBLANE,
+                             grid_txns: int | None = None,
+                             burst_beats: int = 1) -> torch.Tensor:
+    """Pack byte-level RST params + engine count + grant size into the
+    int32[6] operand of the concurrent-access kernel (on the host)."""
+    base = params_operand(p, dtype, burst_rows, grid_txns)
+    # The N disjoint per-engine windows span base + N*wset blocks — wider
+    # than the single-engine range params_operand already validated.
+    stride_b, wset_b, base_b = block_params(p, tile_bytes(dtype, burst_rows))
+    n = p.n if grid_txns is None else min(p.n, grid_txns)
+    _require_int32_index_range(stride_b, wset_b, base_b, n,
+                               num_engines=num_engines)
+    return torch.cat(
+        [base, torch.tensor([num_engines, burst_beats], dtype=torch.int32)])
+
+
+def _resolve_grant_beats(arbitration: str, burst_beats: int,
+                         grid_txns: int) -> int:
+    """Map the arbitration-policy axis onto the kernel's grant size via
+    the timing model's shared `_grant_beats` table (one set of policy
+    names and validations), clamped to the per-engine grid: a grant
+    cannot exceed the stream, and an unclamped grant would pad the grid
+    with gated steps that read nothing."""
+    return min(_grant_beats(arbitration, burst_beats, grid_txns), grid_txns)
+
+
+def measure_contended_bandwidth(p: RSTParams, *, num_engines: int,
+                                arbitration: str = "round_robin",
+                                burst_beats: int = 1,
+                                dtype: torch.dtype = torch.float32,
+                                burst_rows: int = SUBLANE,
+                                grid_txns: int | None = None,
+                                device: "torch.device | str | None" = None
+                                ) -> BandwidthSample:
+    """N read engines sharing the card's memory (DESIGN.md §8/§9): the
+    grant-interleaved traversal of `timing_model.contended_throughput`
+    run on the device, at the requested arbitration granularity
+    (round-robin beats, `burst_beats`-sized grants, or exclusive
+    whole-stream grants).  Each engine owns a disjoint W-byte window of
+    one shared buffer; bytes moved counts every engine (N·n·B over the
+    kernel time), so `gbps` is the aggregate under contention."""
+    if num_engines < 1:
+        raise ValueError(f"num_engines must be >= 1, got {num_engines}")
+    dev = resolve_device(device)
+    grid = grid_txns or default_grid(p.n, dev)
+    bb = _resolve_grant_beats(arbitration, burst_beats, grid)
+    operand = contended_params_operand(p, num_engines, dtype, burst_rows,
+                                       grid, bb)
+    buf = make_working_buffer(p, dtype, num_engines=num_engines, device=dev)
+
+    def run():
+        return rst_contend_read(operand, buf, grid_txns=grid,
+                                num_engines=num_engines, burst_beats=bb,
+                                burst_rows=burst_rows)
+
+    out = run()
+    seconds = time_median(run, dev)
+    return BandwidthSample(
+        bytes_moved=num_engines * min(p.n, grid) * p.b, seconds=seconds,
+        checksum=out.cpu().numpy())
+
+
+def _mix_block_rows(mix: EngineMix, dtype: torch.dtype, burst_rows: int,
+                    grid_txns: int | None) -> Tuple[list, int]:
+    """Per-engine (stride, wset, base, n) block rows for the mix kernel.
+
+    Engine k's disjoint window is laid out directly after engine k-1's:
+    its row's base block folds in the cumulative working-set offset, so
+    the kernel's index stays the three-term homogeneous form.  Every row
+    is int32-guarded individually — one oversized entry must name itself
+    rather than hide behind the mix's aggregate span.
+
+    Returns (rows, span_blocks) where span_blocks is the buffer extent
+    in tiles.
+    """
+    tb = tile_bytes(dtype, burst_rows)
+    rows = []
+    offset_b = 0
+    span_b = 0
+    for k, (p, op) in enumerate(mix.entries):
+        if op != "read":
+            raise ValueError(
+                f"the contention kernel measures read engines only; entry "
+                f"{k} of mix {mix.describe()!r} is {op!r} — route "
+                f"write/duplex engines through the sim placement paths "
+                f"(DESIGN.md §13)")
+        if p.b != tb:
+            raise ValueError(
+                f"entry {k} burst B={p.b} does not match tile bytes {tb} "
+                f"(burst_rows={burst_rows}, "
+                f"dtype={str(dtype).removeprefix('torch.')}); the burst "
+                f"is the kernel's tile shared by every engine in the mix "
+                f"(DESIGN.md §2/§13)")
+        stride_b, wset_b, base_b = block_params(p, tb)
+        base_k = base_b + offset_b
+        n = p.n if grid_txns is None else min(p.n, grid_txns)
+        _require_int32_index_range(stride_b, wset_b, base_k, n)
+        rows.append([stride_b, wset_b, base_k, n])
+        offset_b += wset_b
+        span_b = max(span_b, base_k + wset_b)
+    return rows, span_b
+
+
+def mix_params_operand(mix: EngineMix, dtype: torch.dtype,
+                       burst_rows: int = SUBLANE,
+                       grid_txns: int | None = None,
+                       burst_beats: int = 1) -> torch.Tensor:
+    """Pack a heterogeneous EngineMix into the int32[N+1, 4] table of
+    `rst_contend_mix_read` (on the host): a header row (num_engines,
+    burst_beats, 0, 0) followed by one per-engine row, each int32-guarded
+    on its own index arithmetic."""
+    rows, _ = _mix_block_rows(mix, dtype, burst_rows, grid_txns)
+    header = [len(mix), burst_beats, 0, 0]
+    return torch.tensor([header] + rows, dtype=torch.int32)
+
+
+def make_mix_working_buffer(mix: EngineMix, dtype: torch.dtype,
+                            generator: Optional[torch.Generator] = None, *,
+                            burst_rows: int = SUBLANE,
+                            grid_txns: int | None = None,
+                            device: "torch.device | str | None" = None
+                            ) -> torch.Tensor:
+    """Allocate one shared working buffer on `device` (default: the card)
+    covering every engine's disjoint window under the `_mix_block_rows`
+    layout (engine k's window directly after engine k-1's, past its own
+    base offset), with `make_working_buffer`'s content."""
+    dev = resolve_device(device)
+    _, span_b = _mix_block_rows(mix, dtype, burst_rows, grid_txns)
+    return _fill_buffer(span_b * burst_rows, dtype, generator, dev)
+
+
+def measure_contended_mix_bandwidth(mix: EngineMix, *,
+                                    arbitration: str = "round_robin",
+                                    burst_beats: int = 1,
+                                    dtype: torch.dtype = torch.float32,
+                                    burst_rows: int = SUBLANE,
+                                    grid_txns: int | None = None,
+                                    device: "torch.device | str | None" = None
+                                    ) -> BandwidthSample:
+    """A heterogeneous mix of read engines sharing the card's memory: the
+    per-engine generalization of `measure_contended_bandwidth`.  A
+    uniform mix delegates to the homogeneous wrapper outright (the same
+    reduction rule every layer of the contention stack applies), so the
+    mixed kernel only ever runs for genuinely heterogeneous traffic.
+    Bytes moved counts every engine's own burst size over its own
+    stream, so `gbps` is the aggregate under the mixed load."""
+    uni = mix.uniform_entry()
+    if uni is not None:
+        p, op = uni
+        if op != "read":
+            raise ValueError(
+                f"the contention kernel measures read engines only; mix "
+                f"{mix.describe()!r} is all-{op} — route write/duplex "
+                f"engines through the sim placement paths (DESIGN.md §13)")
+        return measure_contended_bandwidth(
+            p, num_engines=len(mix), arbitration=arbitration,
+            burst_beats=burst_beats, dtype=dtype, burst_rows=burst_rows,
+            grid_txns=grid_txns, device=device)
+    dev = resolve_device(device)
+    grid = grid_txns or default_grid(max(p.n for p in mix.params), dev)
+    bb = _resolve_grant_beats(arbitration, burst_beats, grid)
+    table = mix_params_operand(mix, dtype, burst_rows, grid, burst_beats=bb)
+    buf = make_mix_working_buffer(mix, dtype, burst_rows=burst_rows,
+                                  grid_txns=grid, device=dev)
+
+    def run():
+        return rst_contend_mix_read(table, buf, grid_txns=grid,
+                                    num_engines=len(mix), burst_beats=bb,
+                                    burst_rows=burst_rows)
+
+    out = run()
+    seconds = time_median(run, dev)
+    return BandwidthSample(
+        bytes_moved=sum(min(p.n, grid) * p.b for p in mix.params),
+        seconds=seconds, checksum=out.cpu().numpy())
 
 
 def measure_write_bandwidth(p: RSTParams, *,

@@ -35,15 +35,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def check_buffer(buf: torch.Tensor, burst_rows: int,
                  dtypes: Sequence[torch.dtype]) -> int:
-    """Validate the working buffer; returns its number of tiles."""
-    if buf.dim() != 2 or buf.shape[1] != LANE:
-        raise ValueError(
-            f"buffer must be (rows, {LANE}), got {tuple(buf.shape)}")
-    rows = buf.shape[0]
-    if burst_rows <= 0 or burst_rows % SUBLANE:
+    """Validate the working buffer, with the reference kernels' texts for
+    the checks they make; returns its number of tiles."""
+    rows, lane = buf.shape if buf.dim() == 2 else (0, tuple(buf.shape))
+    if lane != LANE:
+        raise ValueError(f"buffer minor dim must be {LANE}, got {lane}")
+    if burst_rows <= 0:
         raise ValueError(f"burst_rows must be a multiple of {SUBLANE}")
     if rows % burst_rows:
         raise ValueError(f"rows ({rows}) % burst_rows ({burst_rows}) != 0")
+    if burst_rows % SUBLANE:
+        raise ValueError(f"burst_rows must be a multiple of {SUBLANE}")
     if buf.dtype not in dtypes:
         raise ValueError(
             f"buffer dtype {buf.dtype} not supported; use one of "

@@ -252,11 +252,16 @@ def test_backend_registry_and_capabilities():
     assert port_core.available_backends()[:2] == ["sim", "cuda"]
     be = port_core.get_backend("cuda")
     assert isinstance(be, port_core.CudaBackend)
+    ref = ref_core.get_backend("pallas")
     assert (be.deterministic, be.supports_latency,
-            be.supports_contention) == (False, False, False)
+            be.supports_contention) == (ref.deterministic,
+                                        ref.supports_latency,
+                                        ref.supports_contention) == (
+        False, False, True)
     pp, _ = params_pair(n=16, b=4096, s=4096, w=16 * 4096)
-    with pytest.raises(port_core.UnsupportedCapability, match="'cuda'"):
-        be.contended_throughput(port_core.HBM, pp, None, num_engines=2)
+    with pytest.raises(ValueError, match="read traffic only"):
+        be.contended_throughput(port_core.HBM, pp, None, num_engines=2,
+                                op="write")
     with pytest.raises(port_core.UnsupportedCapability, match="'cuda'"):
         be.latency(port_core.HBM, pp, None, switch_enabled=False,
                    switch_extra_cycles=0, mix=None)

@@ -267,6 +267,24 @@ class TestWorkingBufferCoversBase:
         assert got.shape[0] * LANE * 4 == kw["a"] + engines * kw["w"]
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_buffer_above_2_24_elements_matches_reference(self, dtype):
+        """Above 2**24 elements the reference's float32 index rounds to
+        even, and index % 251 taken in integers no longer agrees."""
+        jdt, tdt = DTYPES[dtype]
+        size = tdt.itemsize
+        kw = dict(n=8, b=1024 * size, s=1024 * size, w=(1 << 20) * size,
+                  a=(1 << 24) * size)
+        got = ops.make_working_buffer(RSTParams(**kw), tdt, device="cpu")
+        want = np.asarray(ref_ops.make_working_buffer(RefParams(**kw), jdt))
+        assert got.numel() == (1 << 24) + (1 << 20)
+        old = (torch.arange(got.numel(), dtype=torch.int64) % 251).to(
+            torch.float32).reshape(got.shape).to(tdt)
+        assert not np.array_equal(old.to(torch.float32).numpy(),
+                                  want.astype(np.float32))
+        np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                      want.astype(np.float32))
+
     def test_bfloat16_buffer_matches_reference(self):
         kw = dict(n=8, b=2048, w=8 * 2048, s=2048)
         got = ops.make_working_buffer(RSTParams(**kw), torch.bfloat16,

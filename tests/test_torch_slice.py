@@ -23,6 +23,7 @@ from repro_torch.core.experiments import run_experiment as port_run
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels.rst_read import rst_read
 from repro_torch.kernels.rst_write import rst_write
+from test_torch_contend import as_port_text
 from test_torch_core import SPEC_NAMES, assert_same
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -66,12 +67,27 @@ def test_experiment_matches_reference(name, spec_name):
         rs, want)
 
 
-def test_cuda_backend_refuses_what_it_lacks():
+CONTENTION_EXPERIMENTS = [
+    "fig9_channel_contention", "contention_scaling_sweep",
+    "arbitration_granularity_sweep", "fig9_cross_switch_contention",
+    "contended_latency_classes", "engine_mix_sweep"]
+
+
+def test_cuda_backend_refuses_what_it_lacks(cpu_cuda_backend):
+    """Latency has no timers on the card.  The contention experiments run
+    at the paper's 32-byte bursts and a mix with a writer, which the
+    contention kernels refuse exactly as the reference's `pallas` kernels
+    do: the same exception type, and the same text with the reference's
+    substrate names read as the port's."""
     with pytest.raises(ValueError, match="supports_latency=False"):
         port_run("table4_idle_latency", port_core.HBM, "cuda", quick=True)
-    with pytest.raises(ValueError, match="supports_contention=False"):
-        port_run("fig9_channel_contention", port_core.HBM, "cuda",
-                 quick=True)
+    for name in CONTENTION_EXPERIMENTS:
+        with pytest.raises(Exception) as want:
+            ref_run(name, ref_core.HBM, "pallas", quick=True)
+        with pytest.raises(Exception) as got:
+            port_run(name, port_core.HBM, "cuda", quick=True)
+        assert type(got.value) is type(want.value) is ValueError, name
+        assert str(got.value) == as_port_text(str(want.value)), name
 
 
 @pytest.fixture
