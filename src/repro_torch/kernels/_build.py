@@ -32,10 +32,9 @@ _SIGNATURES = {
     # threads, partial, out, stream
     "rst_read_launch": (_c_int, _c_ptr, _c_int, _c_i64, _c_i64, _c_i64, _c_i64,
                         _c_i64, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr),
-    # device, buf, dtype, tile_bytes, stride, wset, base, n, n_ctas,
-    # threads, stream
+    # device, buf, dtype, tile_bytes, stride, wset, base, n, stream
     "rst_write_launch": (_c_int, _c_ptr, _c_int, _c_i64, _c_i64, _c_i64, _c_i64,
-                         _c_i64, _c_int, _c_int, _c_ptr),
+                         _c_i64, _c_ptr),
     # device, buf, dtype, tile_bytes, stride, wset, base, n, engines,
     # burst_beats, steps, n_ctas, threads, partial, out, stream
     "rst_contend_read_launch": (_c_int, _c_ptr, _c_int, _c_i64, _c_i64, _c_i64,

@@ -16,40 +16,53 @@
 // What bounds them: device-memory bytes.  The read moves n*B bytes in and
 // one tile out, the write n*B bytes out; against the H100 SXM's 3.35 TB/s
 // a 256 MiB traversal needs about 80 us, and the arithmetic (one add per
-// element read) is far below the card's rate.  So the design only has to
-// keep enough 16-byte loads or stores in flight:
+// element read) is far below the card's rate.  So the design has to keep
+// enough 16-byte loads or stores in flight, and keep the fixed cost of a
+// call (launches, ramp, the cross-CTA sum) small beside 80 us:
 //
-// * The TPU grid runs its steps in order on one core and carries the
-//   checksum in VMEM from step to step.  Here the stream is cut into
-//   contiguous chunks, one per CTA in gridDim.x (a few CTAs per SM, set by
-//   the wrapper), and gridDim.y cuts a tile into slices of blockDim.x
-//   16-byte vectors.  Each thread owns one vector position of the tile,
-//   accumulates it in float32 registers over its chunk (converting bf16 or
-//   int8 as it loads) and keeps kUnroll independent loads in flight.
-// * The cross-CTA sum is a second small pass over an [n_ctas, tile]
-//   float32 scratch, in a fixed order: the result is deterministic and no
-//   float atomics are used.
-// * (i * stride) % wset is advanced by one add and one compare per
-//   transaction instead of a 64-bit division; all index arithmetic is
-//   64-bit.
-// * stride, wset, base and n are runtime arguments, so one binary serves
-//   every RST variant (the paper's challenge C2).
-// * The write: when n exceeds the period P = wset / gcd(stride, wset),
-//   transactions revisit tiles, and CTAs running in parallel would race
-//   where the TPU's ordered grid made the last write win.  Every
-//   transaction i therefore stores the FINAL payload of its tile,
+// * The read.  The TPU grid runs its steps in order on one core and
+//   carries the checksum in VMEM from step to step.  Here the stream is
+//   cut into contiguous chunks, one per CTA in gridDim.x (a few CTAs per
+//   SM, set by the wrapper), and gridDim.y cuts a tile into slices of
+//   blockDim.x 16-byte vectors.  Each thread owns one vector position of
+//   the tile, accumulates it in float32 registers over its chunk
+//   (converting bf16 or int8 as it loads) and keeps kUnroll independent
+//   loads in flight; (i * stride) % wset advances by an add and a
+//   compare.  The per-CTA partial tiles are added by rst_sum_kernel
+//   (rst_common.cuh): wide, in a fixed order, launched as a programmatic
+//   dependent so that its launch overlaps the stream.
+// * The write is laid out as fill_ lays out its blocks: CTA i is
+//   transaction i, and its kWriteThreads threads store the tile's 16-byte
+//   vectors side by side, so neighbouring CTAs write neighbouring tiles
+//   (at stride B) and each warp writes 512 contiguous bytes.  A CTA that
+//   owned a long chunk of tiles, as the read's do, kept some 500 write
+//   streams half a MiB apart and reached 88 % of the bound where fill_
+//   reaches 94 %.  The CTA's index arithmetic is one remainder and one
+//   quotient, in 32 bits whenever the operands fit.
+// * When n exceeds the period P = wset / gcd(stride, wset), transactions
+//   revisit tiles, and CTAs running in parallel would race where the
+//   TPU's ordered grid made the last write win.  Every transaction i
+//   therefore stores the FINAL payload of its tile,
 //   1 + i + P * floor((n - 1 - i) / P) = 1 + max{j < n : T[j] = T[i]},
 //   so all stores to one tile carry identical bytes and the race is
-//   harmless.  The kernel still writes n*B bytes, like the TPU kernel.
-//   The float32 payload is cast to bf16 with round-to-nearest-even, as
-//   JAX casts it.
+//   harmless.  The kernel still writes n*B bytes, like the TPU kernel:
+//   revisits are written, not skipped.  The float32 payload is cast to
+//   bf16 with round-to-nearest-even, as JAX casts it.
+// * stride, wset, base and n are runtime arguments, so one binary serves
+//   every RST variant (the paper's challenge C2); all index arithmetic is
+//   64-bit where a product can pass 2**32.
 
 #include "rst_common.cuh"
 
 namespace {
 
-// Partial sums: CTA x sums transactions [x * chunk, min((x+1) * chunk, n))
-// at vector slot v = blockIdx.y * blockDim.x + threadIdx.x of the tile.
+// Threads of a write CTA; each stores every blockDim.x-th vector of its
+// tile (two per thread for a 4 KiB tile).
+constexpr int kWriteThreads = 128;
+
+// CTA x sums transactions [x * chunk, min((x+1) * chunk, n)) at vector
+// slot v = blockIdx.y * blockDim.x + threadIdx.x of the tile into row x
+// of `partial`.
 template <typename T>
 __global__ void rst_read_partial_kernel(const uint4* __restrict__ buf,
                                         int64_t tile_vecs, int64_t stride,
@@ -57,6 +70,7 @@ __global__ void rst_read_partial_kernel(const uint4* __restrict__ buf,
                                         int64_t n, int64_t chunk,
                                         float* __restrict__ partial) {
   constexpr int kElems = Vec<T>::kElems;
+  allow_dependent_launch();
   const int64_t v =
       static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
   if (v >= tile_vecs) return;
@@ -108,34 +122,28 @@ __device__ __forceinline__ uint4 splat<__nv_bfloat16>(float payload) {
   return make_uint4(w, w, w, w);
 }
 
+// CTA i is transaction i: its threads store the tile's final payload at
+// vector slots threadIdx.x, threadIdx.x + blockDim.x, ... of tile
+// base + (i * stride) % wset.  A CTA whose transaction does not wrap the
+// window, or is its tile's last visit, skips that division (all of them
+// on a stream with n * stride <= wset).
 template <typename T>
 __global__ void rst_write_kernel(uint4* __restrict__ buf, int64_t tile_vecs,
                                  int64_t stride, int64_t wset, int64_t base,
-                                 int64_t n, int64_t chunk, int64_t period) {
-  const int64_t v =
-      static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  if (v >= tile_vecs) return;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * chunk;
-  const int64_t i1 = min64(i0 + chunk, n);
-  if (i0 >= i1) return;
-
-  const int64_t step = stride % wset;
-  int64_t off = (i0 % wset) * step % wset;
-  // last = i + period * q, with (n - 1 - i) = q * period + rem.
-  int64_t q = (n - 1 - i0) / period;
-  int64_t rem = (n - 1 - i0) - q * period;
-  for (int64_t i = i0; i < i1; ++i) {
-    const int64_t last = i + period * q;
-    buf[(base + off) * tile_vecs + v] =
-        splat<T>(static_cast<float>(last + 1));
-    off += step;
-    if (off >= wset) off -= wset;
-    if (rem > 0) {
-      --rem;
-    } else {
-      --q;
-      rem = period - 1;
-    }
+                                 int64_t n, int64_t period) {
+  const int64_t i = blockIdx.x;
+  const int64_t reach = i * stride;
+  const int64_t off =
+      reach < wset ? reach
+                   : mod_u(mod_u(i, wset) * mod_u(stride, wset), wset);
+  const int64_t later = n - 1 - i;
+  const int64_t last =
+      later < period ? i : i + period * div_u(later, period);
+  const uint4 payload = splat<T>(static_cast<float>(last + 1));
+  uint4* const tile = buf + (base + off) * tile_vecs;
+#pragma unroll 4
+  for (int64_t v = threadIdx.x; v < tile_vecs; v += blockDim.x) {
+    tile[v] = payload;
   }
 }
 
@@ -167,14 +175,13 @@ cudaError_t launch_read(const void* buf, int64_t tile_bytes, int64_t stride,
 
 template <typename T>
 cudaError_t launch_write(void* buf, int64_t tile_bytes, int64_t stride,
-                         int64_t wset, int64_t base, int64_t n, int n_ctas,
-                         int threads, cudaStream_t stream) {
+                         int64_t wset, int64_t base, int64_t n,
+                         cudaStream_t stream) {
   const int64_t tile_vecs = tile_bytes / kVecBytes;
-  const int64_t chunk = ceil_div(n, n_ctas);
   const int64_t period = wset / gcd64(stride % wset, wset);
-  rst_write_kernel<T><<<tile_grid(n_ctas, tile_vecs, threads), threads,
-                        0, stream>>>(static_cast<uint4*>(buf), tile_vecs,
-                                     stride, wset, base, n, chunk, period);
+  rst_write_kernel<T><<<static_cast<unsigned>(n), kWriteThreads, 0,
+                        stream>>>(static_cast<uint4*>(buf), tile_vecs,
+                                  stride, wset, base, n, period);
   return cudaGetLastError();
 }
 
@@ -209,21 +216,20 @@ int rst_read_launch(int device, const void* buf, int dtype,
 }
 
 // On CUDA device `device`, writes the n tiles of the RST write stream in
-// place.  n must be >= 1.
+// place, one CTA a transaction.  n must be >= 1.
 // Returns the cudaError_t of the launch (0 on success).
 int rst_write_launch(int device, void* buf, int dtype, int64_t tile_bytes,
                      int64_t stride, int64_t wset, int64_t base, int64_t n,
-                     int n_ctas, int threads, void* stream) {
+                     void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch_write<float>(buf, tile_bytes, stride, wset, base, n,
-                                 n_ctas, threads, s);
+      return launch_write<float>(buf, tile_bytes, stride, wset, base, n, s);
     case kBFloat16:
       return launch_write<__nv_bfloat16>(buf, tile_bytes, stride, wset, base,
-                                         n, n_ctas, threads, s);
+                                         n, s);
     default:
       return cudaErrorInvalidValue;
   }

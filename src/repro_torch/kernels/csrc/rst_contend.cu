@@ -36,18 +36,27 @@
 //   round robin spreads it over all N windows, an exclusive grant keeps it
 //   in one.  There is no barrier across CTAs, which would measure itself.
 // * Each CTA computes the tile index of its next kBatch steps once, one
-//   thread a step (two 64-bit divisions and a remainder each), into
-//   shared memory; then every thread streams those tiles, one 16-byte
-//   slot of the tile per thread, kUnroll loads in flight, summing in
-//   float32 registers.  Index arithmetic is 64-bit throughout.
+//   thread a step, into shared memory; then every thread streams those
+//   tiles, one 16-byte slot of the tile per thread, kUnroll loads in
+//   flight, summing in float32 registers.  The divisions of the grant
+//   position and the window remainder run in 32 bits whenever the
+//   operands fit (div_u), so a batch is indexed in a fraction of a
+//   microsecond.  Computing the next batch in a separate indexer warp
+//   while the current one streams was measured no faster (PERF.md): the
+//   extra warp cost as much as the overlap saved.
 // * A gated step (t >= n) is marked and skipped: it loads nothing, where
 //   the TPU re-fetched the engine's last block.
-// * The cross-CTA sum is rst_read's second pass over an [n_ctas, tile]
-//   float32 scratch in a fixed order: deterministic, no float atomics.
+// * The per-CTA partial tiles are added by rst_sum_kernel (rst_common.cuh):
+//   many CTAs, every row range of a column in flight at once, a fixed
+//   order, so the result is deterministic and needs no float atomics; it
+//   is launched as a programmatic dependent of the streaming kernel, so
+//   its launch overlaps the stream.  The sum it replaced, four CTAs each
+//   adding hundreds of rows one after another, cost about 10 us a call,
+//   half the fixed cost that held the kernel at 87 % of its bound.
 // * The mix table lives in device memory and every CTA copies it into
 //   shared memory at start; N is not bounded by a fixed-size struct, and
-//   above 48 KB of table the launch raises the kernel's shared-memory
-//   limit.
+//   above kTableSmemNoOptIn bytes of table the launch raises the kernel's
+//   shared-memory limit.
 
 #include "rst_common.cuh"
 
@@ -57,15 +66,18 @@ namespace {
 constexpr int kBatch = 256;
 // Tile index of a step that reads nothing.
 constexpr int64_t kGated = -1;
+// Mix tables up to this many bytes fit in shared memory beside the
+// static index batch (2 KB) without raising the kernel's limit (48 KB).
+constexpr size_t kTableSmemNoOptIn = 40 * 1024;
 
 // (engine k, transaction t) of merged step j: _grant_position.
 __device__ __forceinline__ void grant_position(int64_t j, int64_t engines,
                                                int64_t bb, int64_t* k,
                                                int64_t* t) {
   const int64_t per_round = bb * engines;
-  const int64_t g = j / per_round;
+  const int64_t g = div_u(j, per_round);
   const int64_t r = j - g * per_round;
-  *k = r / bb;
+  *k = div_u(r, bb);
   *t = g * bb + (r - *k * bb);
 }
 
@@ -77,7 +89,7 @@ struct UniformEngines {
     int64_t k, t;
     grant_position(j, engines, bb, &k, &t);
     if (t >= n) return kGated;
-    return base + k * wset + (t * stride) % wset;
+    return base + k * wset + mod_u(t * stride, wset);
   }
 };
 
@@ -90,7 +102,7 @@ struct MixEngines {
     grant_position(j, table[0], table[1], &k, &t);
     const int* row = table + 4 * (k + 1);
     if (t >= row[3]) return kGated;
-    return row[2] + (t * static_cast<int64_t>(row[0])) % row[1];
+    return row[2] + mod_u(t * static_cast<int64_t>(row[0]), row[1]);
   }
 };
 
@@ -148,6 +160,7 @@ __global__ void rst_contend_partial_kernel(const uint4* __restrict__ buf,
                                            int64_t tile_vecs, int64_t steps,
                                            UniformEngines engines,
                                            float* __restrict__ partial) {
+  allow_dependent_launch();
   contend_partial<T>(buf, tile_vecs, steps, engines, partial);
 }
 
@@ -156,6 +169,7 @@ __global__ void rst_contend_mix_partial_kernel(
     const uint4* __restrict__ buf, int64_t tile_vecs, int64_t steps,
     const int* __restrict__ table, int table_ints,
     float* __restrict__ partial) {
+  allow_dependent_launch();
   extern __shared__ int table_smem[];
   for (int i = threadIdx.x; i < table_ints; i += blockDim.x) {
     table_smem[i] = table[i];
@@ -189,7 +203,7 @@ cudaError_t launch_contend_mix(const void* buf, int64_t tile_bytes,
   const int64_t tile_vecs = tile_bytes / kVecBytes;
   const int64_t table_ints = (engines + 1) * 4;
   const size_t smem = static_cast<size_t>(table_ints) * sizeof(int);
-  if (smem > 48 * 1024) {
+  if (smem > kTableSmemNoOptIn) {
     const cudaError_t err = cudaFuncSetAttribute(
         rst_contend_mix_partial_kernel<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -32,7 +32,30 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rst_read import (DTYPE_CODES, LANE, SUBLANE,
-                                          check_buffer, launch_shape)
+                                          check_buffer, launch_shape,
+                                          sum_scratch)
+
+INDEX_BATCH = 256            # steps a CTA indexes at once (kBatch)
+SHARED_MEMORY_LIMIT = 232448  # bytes of shared memory a Hopper CTA may use
+
+
+def shared_memory_bytes(num_engines: int = 0) -> int:
+    """Shared memory of one CTA of the contention kernels: a batch of
+    int64 step indices and, for a mix of `num_engines` engines, its
+    int32[N+1, 4] table."""
+    table = (num_engines + 1) * 16 if num_engines else 0
+    return INDEX_BATCH * 8 + table
+
+
+def check_shared_memory(num_engines: int) -> None:
+    """Raise if a mix of `num_engines` engines cannot fit its table in the
+    shared memory of one CTA."""
+    smem = shared_memory_bytes(num_engines)
+    if smem > SHARED_MEMORY_LIMIT:
+        raise ValueError(
+            f"a mix of {num_engines} engines needs {smem} bytes of shared "
+            f"memory, more than the {SHARED_MEMORY_LIMIT} a CTA may use")
+
 
 def check_engines(buf: torch.Tensor, burst_rows: int, num_engines: int,
                   burst_beats: int) -> int:
@@ -179,14 +202,10 @@ def rst_contend_mix_read_plain(table, buf: torch.Tensor, *, grid_txns: int,
 
 def _scratch(buf: torch.Tensor, steps: int, burst_rows: int):
     """(n_ctas, threads, tile_bytes, partial, out) of one launch."""
-    tile_elems = burst_rows * LANE
-    tile_bytes = tile_elems * buf.element_size()
+    tile_bytes = burst_rows * LANE * buf.element_size()
     n_ctas, threads = launch_shape(buf, steps, tile_bytes // 16)
-    partial = torch.empty((n_ctas, tile_elems), dtype=torch.float32,
-                          device=buf.device)
-    out = torch.empty((burst_rows, LANE), dtype=torch.float32,
-                      device=buf.device)
-    return n_ctas, threads, tile_bytes, partial, out
+    return (n_ctas, threads, tile_bytes,
+            *sum_scratch(buf, n_ctas, burst_rows))
 
 
 def rst_contend_read(params, buf: torch.Tensor, *, grid_txns: int,
@@ -258,6 +277,7 @@ def rst_contend_mix_read(table, buf: torch.Tensor, *, grid_txns: int,
                                           burst_rows=burst_rows)
     tiles = check_engines(buf, burst_rows, num_engines, burst_beats)
     rows = mix_rows(table, tiles, num_engines, burst_beats)
+    check_shared_memory(num_engines)
     steps = total_steps(grid_txns, num_engines, burst_beats)
     n_ctas, threads, tile_bytes, partial, out = _scratch(buf, steps,
                                                          burst_rows)

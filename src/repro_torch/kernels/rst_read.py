@@ -88,14 +88,35 @@ def tile_indices(stride: int, wset: int, base: int, n: int,
     return base + (i * stride) % wset
 
 
+def grid_shape(n: int, tile_vecs: int, sms: int) -> Tuple[int, int, int]:
+    """(CTAs along the stream, slices of the tile, threads per CTA) of one
+    launch on a card with `sms` SMs: enough CTAs to fill every SM a few
+    times, each with at least a few transactions; a slice is `threads`
+    16-byte vectors of the tile."""
+    n_ctas = max(1, min(-(-n // MIN_TXNS_PER_CTA), CTAS_PER_SM * sms))
+    threads = min(THREADS, tile_vecs)
+    return n_ctas, -(-tile_vecs // threads), threads
+
+
 def launch_shape(buf: torch.Tensor, n: int, tile_vecs: int
                  ) -> Tuple[int, int]:
-    """(CTAs along the stream, threads per CTA) for one launch: enough
-    CTAs to fill every SM a few times, each with at least a few
-    transactions."""
+    """(CTAs along the stream, threads per CTA) of one launch on `buf`'s
+    card."""
     sms = torch.cuda.get_device_properties(buf.device).multi_processor_count
-    n_ctas = max(1, min(-(-n // MIN_TXNS_PER_CTA), CTAS_PER_SM * sms))
-    return n_ctas, min(THREADS, tile_vecs)
+    n_ctas, _, threads = grid_shape(n, tile_vecs, sms)
+    return n_ctas, threads
+
+
+def sum_scratch(buf: torch.Tensor, n_ctas: int, burst_rows: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(partial, out) of one summing launch on `buf`'s card: the
+    [n_ctas, tile] float32 rows of the streaming pass and the
+    (burst_rows, LANE) float32 result of the cross-CTA sum."""
+    partial = torch.empty((n_ctas, burst_rows * LANE), dtype=torch.float32,
+                          device=buf.device)
+    out = torch.empty((burst_rows, LANE), dtype=torch.float32,
+                      device=buf.device)
+    return partial, out
 
 
 def rst_read_plain(params, buf: torch.Tensor, *, grid_txns: int,
@@ -133,13 +154,9 @@ def rst_read(params, buf: torch.Tensor, *, grid_txns: int,
                               burst_rows=burst_rows)
     tiles = check_buffer(buf, burst_rows, tuple(DTYPE_CODES))
     stride, wset, base, n = stream_scalars(params, grid_txns, tiles)
-    tile_elems = burst_rows * LANE
-    tile_bytes = tile_elems * buf.element_size()
+    tile_bytes = burst_rows * LANE * buf.element_size()
     n_ctas, threads = launch_shape(buf, n, tile_bytes // 16)
-    partial = torch.empty((n_ctas, tile_elems), dtype=torch.float32,
-                          device=buf.device)
-    out = torch.empty((burst_rows, LANE), dtype=torch.float32,
-                      device=buf.device)
+    partial, out = sum_scratch(buf, n_ctas, burst_rows)
     lib = _build.library()
     status = lib.rst_read_launch(
         buf.device.index, buf.data_ptr(), DTYPE_CODES[buf.dtype],

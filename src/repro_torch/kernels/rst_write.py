@@ -11,10 +11,10 @@ no donation, so `rst_write` writes IN PLACE into the caller's tensor and
 returns that same tensor.
 
 On the card `rst_write` launches ``rst_write_launch`` from
-``csrc/rst.cu``.  Its CTAs run in no order, so every transaction stores
-the final payload of its tile, ``1 + max{j < n : T[j] = T[i]}``, and
-racing stores to one tile carry identical bytes (design note in the
-source).  On a CPU tensor `rst_write` runs `rst_write_plain`, which
+``csrc/rst.cu``, one CTA a transaction, laid out as ``fill_`` lays out
+its blocks.  Its CTAs run in no order, so every transaction stores the
+final payload of its tile, ``1 + max{j < n : T[j] = T[i]}``, and racing
+stores to one tile carry identical bytes (design note in the source).  On a CPU tensor `rst_write` runs `rst_write_plain`, which
 replays the stream and lets the last write of each tile win.
 """
 from __future__ import annotations
@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rst_read import (DTYPE_CODES, LANE, SUBLANE,
-                                          check_buffer, launch_shape,
-                                          stream_scalars, tile_indices)
+                                          check_buffer, stream_scalars,
+                                          tile_indices)
 
 WRITE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -61,11 +61,9 @@ def rst_write(params, buf: torch.Tensor, *, grid_txns: int,
     stride, wset, base, n = stream_scalars(params, grid_txns, tiles)
     if n == 0:
         return buf
-    tile_bytes = burst_rows * LANE * buf.element_size()
-    n_ctas, threads = launch_shape(buf, n, tile_bytes // 16)
     status = _build.library().rst_write_launch(
         buf.device.index, buf.data_ptr(), DTYPE_CODES[buf.dtype],
-        tile_bytes, stride, wset, base, n, n_ctas, threads,
+        burst_rows * LANE * buf.element_size(), stride, wset, base, n,
         torch.cuda.current_stream(buf.device).cuda_stream)
     _build.check(status, "rst_write")
     rst_write.launches += 1

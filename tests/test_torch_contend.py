@@ -8,6 +8,9 @@ On the CPU the port's wrappers run their plain PyTorch versions; the
 tests marked `cuda` hold the CUDA kernels against those plain versions
 and skip where there is no card.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,11 +29,17 @@ from repro_torch import bench
 from repro_torch.core import EngineMix, RSTParams
 from repro_torch.core.engine import CudaBackend
 from repro_torch.kernels import ops
-from repro_torch.kernels.rst_contend import (rst_contend_mix_read,
+from repro_torch.kernels import rst_contend as rst_contend_module
+from repro_torch.kernels.rst_contend import (SHARED_MEMORY_LIMIT,
+                                             check_shared_memory,
+                                             contend_tile_indices,
+                                             rst_contend_mix_read,
                                              rst_contend_mix_read_plain,
                                              rst_contend_read,
-                                             rst_contend_read_plain)
-from repro_torch.kernels.rst_read import LANE, rst_read
+                                             rst_contend_read_plain,
+                                             shared_memory_bytes,
+                                             total_steps)
+from repro_torch.kernels.rst_read import LANE, grid_shape, rst_read
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),
@@ -625,6 +634,178 @@ def test_bench_refuses_bad_contention_flags(argv):
     assert exc.value.code == 2
 
 
+# ------------------------------------ the card's schedule, on the host
+#
+# A host emulation of csrc/rst_contend.cu's schedule, step by step as the
+# CUDA code advances it: CTA c indexes its steps j = c + m * C in batches
+# of kBatch, streams each batch in increasing m, skips gated steps, and
+# stores its partial row; then the cross-CTA sum of csrc/rst_common.cuh
+# in its fixed order.  Held
+# against the plain versions: exactly on small integers (every partial
+# sum stays below 2**24, so no order of the float32 adds rounds), within
+# rtol 1e-5 on normal floats (the kernel adds in another order than the
+# plain version's single sum).  The constants are read from the sources.
+
+SMS = 132  # the H100 SXM's SMs, for the launch geometry
+CSRC = Path(rst_contend_module.__file__).parent / "csrc"
+
+
+def _cuda_constant(name):
+    """The value of `constexpr int <name> = <value>;` in csrc/."""
+    for path in sorted(CSRC.glob("*.cu*")):
+        found = re.search(rf"constexpr int {name} = ([^;]+);",
+                          path.read_text())
+        if found:
+            return eval(found.group(1), {},  # e.g. "32 * kSumWarps"
+                        {k: _cuda_constant(k) for k in
+                         re.findall(r"k[A-Z]\w*", found.group(1))})
+    raise KeyError(name)
+
+
+def _uniform_tile(stride, wset, base, n, engines, bb):
+    """UniformEngines::tile: the tile of merged step j, None if gated."""
+    def tile(j):
+        g, r = divmod(j, bb * engines)
+        k, rr = divmod(r, bb)
+        t = g * bb + rr
+        return None if t >= n else base + k * wset + (t * stride) % wset
+    return tile
+
+
+def _mix_tile(rows, bb):
+    """MixEngines::tile over the table's engine rows."""
+    def tile(j):
+        g, r = divmod(j, bb * len(rows))
+        k, rr = divmod(r, bb)
+        t = g * bb + rr
+        stride, wset, base, n = rows[k]
+        return None if t >= n else base + (t * stride) % wset
+    return tile
+
+
+def _cross_cta_sum(partial):
+    """rst_sum_kernel's fixed order (tests/test_torch_kernels.py holds it
+    against an exact sum): lane l of warp w sums rows [s * per, (s + 1) *
+    per), s = w * 32 + l, from 0.0; shuffle-down offsets 16 .. 1 fold each
+    warp; the warps' sums are added in warp order from 0.0."""
+    warps = _cuda_constant("kSumWarps")
+    rows = len(partial)
+    per = -(-rows // (32 * warps))
+    total = np.zeros(partial.shape[1], np.float32)
+    for w in range(warps):
+        lanes = np.zeros((32, partial.shape[1]), np.float32)
+        for lane in range(32):
+            first = min(rows, (w * 32 + lane) * per)
+            for row in partial[first:min(rows, first + per)]:
+                lanes[lane] = lanes[lane] + row
+        for offset in (16, 8, 4, 2, 1):
+            source = [lane + offset if lane + offset < 32 else lane
+                      for lane in range(32)]
+            lanes = lanes + lanes[source]
+        total = total + lanes[0]
+    return total
+
+
+def _emulate_contend(tiles, tile_of, steps, ctas):
+    """contend_partial and the cross-CTA sum.  Returns the sum and, per
+    CTA, its batches of steps in order and the tiles it loaded."""
+    batch_size = _cuda_constant("kBatch")
+    partial = np.zeros((ctas, tiles.shape[1]), np.float32)
+    taken, loaded = [], []
+    for c in range(ctas):
+        mine = -(-(steps - c) // ctas) if steps > c else 0
+        batches, ts = [], []
+        for m0 in range(0, mine, batch_size):
+            js = [c + m * ctas for m in range(m0, min(m0 + batch_size, mine))]
+            index = [tile_of(j) for j in js]   # one thread a step
+            for t in index:
+                if t is not None:               # a gated step loads nothing
+                    partial[c] = partial[c] + tiles[t]
+                    ts.append(t)
+            batches.append(js)
+        taken.append(batches)
+        loaded.append(ts)
+    return _cross_cta_sum(partial), taken, loaded
+
+
+def _host_buffer(rows, values, seed):
+    rng = np.random.default_rng(seed)
+    shape = (rows, LANE)
+    return (rng.integers(0, 4, shape) if values == "integers"
+            else rng.standard_normal(shape)).astype(np.float32)
+
+
+# (stride, wset, base, n, engines, bb, grid, ctas): n below the CTA count;
+# revisits (n > W/S); stride a multiple of wset; more than one index
+# batch per CTA with a ragged last batch and a step count that is not a
+# multiple of the unroll (8); gated steps (n < grid); grants of 1, 16 and
+# n beats; and the main path's CTA count at a size the host can replay.
+CONTEND_SCHEDULES = [
+    (1, 8, 0, 5, 2, 1, 8, 528), (3, 8, 0, 40, 2, 1, 40, 7),
+    (8, 8, 1, 13, 3, 16, 16, 5), (1, 512, 0, 701, 2, 1, 701, 3),
+    (1, 64, 0, 50, 3, 16, 64, 5), (2, 64, 2, 60, 4, 60, 60, 9),
+    (1, 16, 0, 16, 4, 16, 16, 1), (5, 32, 0, 45, 3, 45, 45, 40),
+    (1, 1024, 0, 1024, 4, 1, 1024, grid_shape(4096, 256, SMS)[0])]
+
+
+@pytest.mark.parametrize("values", ["integers", "normal"])
+@pytest.mark.parametrize("case", CONTEND_SCHEDULES, ids=str)
+def test_contend_schedule_matches_plain(values, case):
+    stride, wset, base, n, engines, bb, grid, ctas = case
+    host = _host_buffer((base + engines * wset) * 8, values, seed=n)
+    params = torch.tensor([stride, wset, base, n, engines, bb],
+                          dtype=torch.int32)
+    kw = dict(grid_txns=grid, num_engines=engines, burst_beats=bb)
+    steps = total_steps(grid, engines, bb)
+    got, taken, loaded = _emulate_contend(
+        host.reshape(-1, 8 * LANE),
+        _uniform_tile(stride, wset, base, n, engines, bb), steps, ctas)
+    # CTA c takes j = c, c + C, ... in increasing order, in batches of at
+    # most kBatch steps; together the CTAs take every step once, and load
+    # every tile the plain version reads.
+    for c, batches in enumerate(taken):
+        assert sum(batches, []) == list(range(c, steps, ctas))
+        assert all(len(b) == _cuda_constant("kBatch") for b in batches[:-1])
+    tiles = host.shape[0] // 8
+    want_idx = contend_tile_indices(params, tiles, device="cpu", **kw)
+    assert sorted(t for ts in loaded for t in ts) == sorted(
+        want_idx.tolist())
+    want = rst_contend_read_plain(params, torch.from_numpy(host), **kw)
+    want = want.reshape(-1).numpy()
+    if values == "integers":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("values", ["integers", "normal"])
+@pytest.mark.parametrize("case", MIX_CASES[:4], ids=str)
+@pytest.mark.parametrize("ctas", [1, 5, 40])
+def test_mix_schedule_matches_plain(values, case, ctas):
+    rows, bb, grid = case
+    span = max(base + wset for _, wset, base, _ in rows)
+    host = _host_buffer(span * 8, values, seed=ctas)
+    table = torch.tensor([[len(rows), bb, 0, 0]] + rows, dtype=torch.int32)
+    kw = dict(grid_txns=grid, num_engines=len(rows), burst_beats=bb)
+    got = _emulate_contend(host.reshape(-1, 8 * LANE), _mix_tile(rows, bb),
+                           total_steps(grid, len(rows), bb), ctas)[0]
+    want = rst_contend_mix_read_plain(table, torch.from_numpy(host), **kw)
+    want = want.reshape(-1).numpy()
+    if values == "integers":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_oversized_mix_table_is_refused():
+    """A mix whose table cannot fit a CTA's shared memory is refused with
+    the sizes, before the launch."""
+    engines = (SHARED_MEMORY_LIMIT - shared_memory_bytes()) // 16
+    with pytest.raises(ValueError, match=f"{engines} engines needs"):
+        check_shared_memory(engines)
+    check_shared_memory(engines - 1)
+
+
 # ------------------------------------------------------- on the card only
 
 
@@ -676,3 +857,34 @@ def test_cuda_single_engine_matches_read_kernel(cuda_device):
         grid_txns=p.n, num_engines=1)
     read = rst_read(ops.params_operand(p, torch.float32), buf, grid_txns=p.n)
     assert torch.equal(contended, read)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["integers", "normal"])
+def test_cuda_contend_schedules_match_plain(cuda_device, values):
+    """The host-emulated schedules on the card, through the library at
+    their CTA counts: exactly on small integers, to rtol 1e-5 on normal
+    floats."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rst_read import DTYPE_CODES, sum_scratch
+
+    for case in CONTEND_SCHEDULES:
+        stride, wset, base, n, engines, bb, grid, ctas = case
+        host = _host_buffer((base + engines * wset) * 8, values, seed=n)
+        buf = torch.from_numpy(host).to(cuda_device)
+        params = torch.tensor([stride, wset, base, n, engines, bb],
+                              dtype=torch.int32)
+        partial, out = sum_scratch(buf, ctas, 8)
+        _build.check(_build.library().rst_contend_read_launch(
+            buf.device.index, buf.data_ptr(), DTYPE_CODES[buf.dtype],
+            8 * LANE * 4, stride, wset, base, n, engines, bb,
+            total_steps(grid, engines, bb), ctas, 256, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "rst_contend_read")
+        want = rst_contend_read_plain(params, buf, grid_txns=grid,
+                                      num_engines=engines, burst_beats=bb)
+        torch.cuda.synchronize()
+        if values == "integers":
+            assert torch.equal(out, want), case
+        else:
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)

@@ -5,6 +5,10 @@ On the CPU the port's wrappers run their plain PyTorch versions; the
 tests marked `cuda` hold the CUDA kernels against those plain versions
 and skip where there is no card.
 """
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +21,12 @@ from repro.kernels.rst_write import rst_write as ref_rst_write
 from repro_torch.core import RSTParams
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rst_read_checksum_ref
-from repro_torch.kernels.rst_read import LANE, rst_read, rst_read_plain
+from repro_torch.kernels.rst_contend import (SHARED_MEMORY_LIMIT,
+                                             shared_memory_bytes)
+from repro_torch.kernels import rst_read as rst_read_module
+from repro_torch.kernels.rst_read import (CTAS_PER_SM, LANE, MIN_TXNS_PER_CTA,
+                                          grid_shape, rst_read,
+                                          rst_read_plain, sum_scratch)
 from repro_torch.kernels.rst_write import rst_write, rst_write_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -342,6 +351,200 @@ def test_entry_points_need_a_card_unless_told_cpu():
         ops.make_working_buffer(p, torch.float32)
 
 
+# ------------------------------------- the card's schedules, on the host
+#
+# Host emulations of csrc/rst.cu's schedules, written step by step as the
+# CUDA code advances them, held against the plain versions.  The write is
+# compared exactly: every store carries its tile's final payload, so the
+# bytes cannot depend on which CTA stores last.  The sums are exact on
+# small integers (every partial sum stays below 2**24, so no order of the
+# float32 adds rounds) and within rtol 1e-5 on normal floats, which the
+# kernel adds in another order than the plain version's single sum.  The
+# schedules' constants are read from the CUDA sources.
+
+SMS = 132  # the H100 SXM's SMs, for the launch geometry
+CSRC = Path(rst_read_module.__file__).parent / "csrc"
+
+
+def _cuda_constant(name):
+    """The value of `constexpr int <name> = <value>;` in csrc/."""
+    for path in sorted(CSRC.glob("*.cu*")):
+        found = re.search(rf"constexpr int {name} = ([^;]+);",
+                          path.read_text())
+        if found:
+            return eval(found.group(1), {},  # e.g. "32 * kSumWarps"
+                        {k: _cuda_constant(k) for k in
+                         re.findall(r"k[A-Z]\w*", found.group(1))})
+    raise KeyError(name)
+
+
+def _emulate_write(stride, wset, base, n, tile_vecs):
+    """rst_write_kernel: CTA i is transaction i; thread t of kWriteThreads
+    stores the payload at vector slots t, t + kWriteThreads, ... of tile
+    base + (i * stride) % wset.  Returns the stores as columns (cta,
+    thread, tile, slot, payload)."""
+    threads = _cuda_constant("kWriteThreads")
+    period = wset // math.gcd(stride % wset, wset)
+    slots = np.arange(tile_vecs)
+    stores = []
+    for i in range(n):
+        reach, later = i * stride, n - 1 - i
+        off = reach if reach < wset else (i % wset) * (stride % wset) % wset
+        last = i if later < period else i + period * (later // period)
+        stores.append(np.stack([np.full(tile_vecs, i), slots % threads,
+                                np.full(tile_vecs, base + off), slots,
+                                np.full(tile_vecs, last + 1)]))
+    return np.concatenate(stores, axis=1)
+
+
+# (stride, wset, base, n): n below the write CTA's thread count, n not a
+# multiple of any unroll (4, 8), revisits (n > W/S), stride = 0 and
+# stride a multiple of wset (one tile), a stride past the window, one
+# transaction, a window the host replays at the main path's stride.
+WRITE_SCHEDULES = [
+    (1, 8, 0, 5), (1, 64, 2, 1001), (3, 8, 0, 100), (2, 16, 1, 77),
+    (8, 8, 0, 13), (0, 4, 3, 9), (13, 8, 0, 40), (1, 8, 0, 1),
+    (5, 64, 0, 130), (1, 1024, 0, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("burst_rows", [8, 64])
+@pytest.mark.parametrize("stride,wset,base,n", WRITE_SCHEDULES)
+def test_write_schedule_matches_plain(dtype, burst_rows, stride, wset, base,
+                                      n):
+    tdt = DTYPES[dtype][1]
+    tile_vecs = burst_rows * LANE * tdt.itemsize // 16
+    buf = torch.randn(((base + wset) * burst_rows, LANE),
+                      generator=torch.Generator().manual_seed(3)).to(tdt)
+    params = torch.tensor([stride, wset, base, n], dtype=torch.int32)
+    cta, thread, tile, slot, payload = _emulate_write(stride, wset, base, n,
+                                                      tile_vecs)
+    # Every transaction stores its whole tile once: n * B bytes.
+    assert len(cta) == n * tile_vecs
+    assert np.unique(cta * tile_vecs + slot).size == n * tile_vecs
+    assert (tile == base + (cta * stride) % wset).all()
+    assert (thread < _cuda_constant("kWriteThreads")).all()
+    # Applied in a seeded random order of the stores: the bytes do not
+    # depend on which CTA stores last.
+    got = buf.clone()
+    vecs = got.view(-1, 16 // tdt.itemsize)
+    order = np.random.default_rng(n).permutation(len(cta))
+    values = torch.from_numpy(payload[order].astype(np.float32)).to(tdt)
+    vecs[torch.from_numpy(tile[order] * tile_vecs + slot[order])] = \
+        values[:, None]
+    want = rst_write_plain(params, buf.clone(), grid_txns=n,
+                           burst_rows=burst_rows)
+    assert torch.equal(got, want)
+
+
+def _cross_cta_sum(partial):
+    """rst_sum_kernel's order for every column at once: lane l of warp w
+    (s = w * 32 + l) sums rows [s * per, (s + 1) * per) in row order from
+    0.0; each warp folds its lanes with shuffle-down offsets 16 .. 1 (a
+    lane whose source is past the warp adds its own value); the warps'
+    sums are added in warp order from 0.0."""
+    warps = _cuda_constant("kSumWarps")
+    rows = len(partial)
+    per = -(-rows // (32 * warps))
+    total = np.zeros(partial.shape[1], np.float32)
+    for w in range(warps):
+        lanes = np.zeros((32, partial.shape[1]), np.float32)
+        for lane in range(32):
+            first = min(rows, (w * 32 + lane) * per)
+            for row in partial[first:min(rows, first + per)]:
+                lanes[lane] = lanes[lane] + row
+        for offset in (16, 8, 4, 2, 1):
+            source = [lane + offset if lane + offset < 32 else lane
+                      for lane in range(32)]
+            lanes = lanes + lanes[source]
+        total = total + lanes[0]
+    return total
+
+
+def _emulate_read(tiles, stride, wset, base, n, ctas):
+    """rst_read_partial_kernel: CTA x sums transactions [x * chunk,
+    (x + 1) * chunk) in order, (i * stride) % wset stepped by adds; then
+    the cross-CTA sum."""
+    chunk = -(-n // ctas) if n > 0 else 1
+    step = stride % wset
+    partial = np.zeros((ctas, tiles.shape[1]), np.float32)
+    for x in range(ctas):
+        i0, i1 = x * chunk, min(x * chunk + chunk, n)
+        off = (i0 % wset) * step % wset if i0 < n else 0
+        for _ in range(i0, i1):
+            partial[x] = partial[x] + tiles[base + off]
+            off += step
+            if off >= wset:
+                off -= wset
+    return _cross_cta_sum(partial)
+
+
+@pytest.mark.parametrize("values", ["integers", "normal"])
+@pytest.mark.parametrize("stride,wset,base,n,ctas", [
+    (1, 8, 0, 5, 528), (1, 64, 2, 1001, 7), (3, 8, 0, 100, 5),
+    (8, 8, 0, 13, 3), (5, 64, 0, 700, 33), (1, 64, 0, 2000, 129),
+    (1, 512, 0, 4000, grid_shape(4000, 256, SMS)[0]), (0, 4, 1, 9, 1),
+    (1, 64, 0, 1000, 1000)])
+def test_read_schedule_matches_plain(values, stride, wset, base, n, ctas):
+    rng = np.random.default_rng(n)
+    shape = ((base + wset) * 8, LANE)
+    host = (rng.integers(0, 4, shape) if values == "integers"
+            else rng.standard_normal(shape)).astype(np.float32)
+    params = torch.tensor([stride, wset, base, n], dtype=torch.int32)
+    got = _emulate_read(host.reshape(-1, 8 * LANE), stride, wset, base, n,
+                        ctas)
+    want = rst_read_plain(params, torch.from_numpy(host), grid_txns=n)
+    want = want.reshape(-1).numpy()
+    if values == "integers":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 128, 129, 528, 1000, 1025])
+def test_cross_cta_sum_order_is_exact_on_integers(rows):
+    """The sum's fixed order gives the exact sum wherever every partial
+    sum is exact, at every row count (ragged last slices, more rows than
+    slices, fewer)."""
+    partial = np.random.default_rng(rows).integers(
+        0, 1 << 12, (rows, 16)).astype(np.float32)
+    np.testing.assert_array_equal(_cross_cta_sum(partial),
+                                  partial.astype(np.float64).sum(0))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("burst_rows", [8, 16, 64])
+def test_launch_geometry(dtype, burst_rows):
+    """Every launch the wrappers make fits a Hopper CTA, and the scratch
+    covers every CTA and slice."""
+    itemsize = DTYPES[dtype][1].itemsize
+    tile_vecs = burst_rows * LANE * itemsize // 16
+    tile_elems = burst_rows * LANE
+    sum_threads = _cuda_constant("kSumThreads")
+    sum_columns = _cuda_constant("kSumColumns")
+    assert sum_threads <= 1024 and sum_threads % 32 == 0
+    assert _cuda_constant("kWriteThreads") <= 1024
+    for n in (1, 7, 16, 17, 4096, 65536, 262144):
+        ctas, slices, threads = grid_shape(n, tile_vecs, SMS)
+        assert 32 <= threads <= 1024 and threads % 32 == 0
+        assert (slices - 1) * threads < tile_vecs <= slices * threads
+        assert 1 <= ctas <= CTAS_PER_SM * SMS
+        assert ctas <= -(-n // MIN_TXNS_PER_CTA)
+        # The sum's grid covers every float4 column of the partial rows.
+        assert -(-tile_elems // 4 // sum_columns) * sum_columns * 4 >= \
+            tile_elems
+    assert shared_memory_bytes() == _cuda_constant("kBatch") * 8
+    assert shared_memory_bytes() <= SHARED_MEMORY_LIMIT
+    assert shared_memory_bytes(1000) <= SHARED_MEMORY_LIMIT
+
+
+def test_sum_scratch_sizes():
+    buf = torch.zeros((64 * 8, LANE), dtype=torch.bfloat16)
+    partial, out = sum_scratch(buf, 33, 16)
+    assert partial.shape == (33, 16 * LANE) and partial.dtype == torch.float32
+    assert out.shape == (16, LANE) and out.dtype == torch.float32
+
+
 # ------------------------------------------------------- on the card only
 
 
@@ -389,3 +592,47 @@ def test_cuda_write_kernel_matches_plain(cuda_device, dtype):
                                burst_rows=burst_rows)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_write_schedules_match_plain(cuda_device, dtype):
+    """The host-emulated write schedules on the card, exactly."""
+    _, tdt = DTYPES[dtype]
+    for stride, wset, base, n in WRITE_SCHEDULES:
+        for burst_rows in (8, 64):
+            buf = torch.randn(((base + wset) * burst_rows, LANE),
+                              generator=torch.Generator().manual_seed(3))
+            buf = buf.to(tdt).to(cuda_device)
+            params = torch.tensor([stride, wset, base, n], dtype=torch.int32)
+            got = rst_write(params, buf.clone(), grid_txns=n,
+                            burst_rows=burst_rows)
+            want = rst_write_plain(params, buf.clone(), grid_txns=n,
+                                   burst_rows=burst_rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [1, 3, 40, 528, 1000])
+def test_cuda_read_at_any_cta_count_matches_plain(cuda_device, ctas):
+    """The read through the library at CTA counts the wrapper never
+    chooses (one CTA, more CTAs than transactions), exactly on small
+    integers."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rst_read import DTYPE_CODES
+
+    for stride, wset, base, n in [(1, 8, 0, 5), (3, 8, 0, 100),
+                                  (1, 512, 0, 4000), (0, 4, 1, 9)]:
+        buf = torch.randint(0, 4, ((base + wset) * 8, LANE),
+                            dtype=torch.float32, device=cuda_device)
+        params = torch.tensor([stride, wset, base, n], dtype=torch.int32)
+        partial, out = sum_scratch(buf, ctas, 8)
+        _build.check(_build.library().rst_read_launch(
+            buf.device.index, buf.data_ptr(), DTYPE_CODES[buf.dtype],
+            8 * LANE * 4, stride, wset, base, n, ctas, 256,
+            partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "rst_read")
+        want = rst_read_plain(params, buf, grid_txns=n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
