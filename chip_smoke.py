@@ -36,8 +36,19 @@ Phases, each fatal on failure:
      the kernel and baseline timed in turns; the baseline read's two
      passes alone and torch.profiler's device time per kernel;
   5c. the same for the contention kernels, with N = 1, 2, 4 round robin
-     fitted to an intercept and a slope per engine; then one JSON line
-     of kernels, the nvidia-smi line, and the final JSON line.
+     fitted to an intercept and a slope per engine;
+  6. grid tier and measured roofline on the card: the bench's
+     10,368-point HBM grid through the batched timing model (torchgrid)
+     on the card, held against the same grid on the CPU and against the
+     per-point timing model on an evenly spaced sample (rel 1e-9), with
+     lanes per route, cold and warm wall time split into host prep,
+     device and result mapping, and peak device memory; then
+     roofline_empirical on `cuda` at the card's shapes (4 KiB tiles,
+     256 MiB windows), whose rst_contend_read launches are counted with
+     the counter set to 0 just before and read just after (and added to
+     the kernel's launches in the kernels line), and the quick envelope
+     on torchgrid against sim; then one JSON line of kernels, the
+     nvidia-smi line, and the final JSON line.
 
 It imports torch and the port (repro_torch) only.
 """
@@ -50,6 +61,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -462,25 +474,31 @@ def compare_contend_kernels(errors):
               f"(rtol {rtol}, atol 1e-4)")
 
     # Full size, exactly, on small integers: one buffer holds the four
-    # engines' windows, and fewer engines read its first windows.
-    p = full_params("seq")
-    buf = small_int_buffer(max(ENGINES) * p.w // (128 * 4), seed=5)
-    for engines in ENGINES:
-        for arbitration, beats in GRANTS:
-            bb = ops._resolve_grant_beats(arbitration, beats, p.n)
-            operand = ops.contended_params_operand(p, engines, torch.float32,
-                                                   TILE_ROWS, p.n, bb)
-            kw = dict(grid_txns=p.n, num_engines=engines, burst_beats=bb)
-            got = rst_contend_read(operand, buf, **kw)
-            want = rst_contend_read_plain(operand, buf, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"full-size rst_contend_read N={engines} {arbitration}:"
-                     f" max abs err {(got - want).abs().max().item()} "
-                     f"(must be exact)")
-    print(f"full size rst_contend_read (N in {ENGINES}, W=256 MiB per "
-          f"engine, n={p.n}) equals its plain version exactly under "
-          f"{[g for g, _ in GRANTS]}")
+    # engines' windows, and fewer engines read its first windows.  seq
+    # is the contention path's shape; strided4 (16384 distinct tiles an
+    # engine, each read 4 times) is half of phase 6c's roofline probes.
+    buf = small_int_buffer(max(ENGINES) * full_params("seq").w // (128 * 4),
+                           seed=5)
+    for pattern in ("seq", "strided4"):
+        p = full_params(pattern)
+        for engines in ENGINES:
+            for arbitration, beats in GRANTS:
+                bb = ops._resolve_grant_beats(arbitration, beats, p.n)
+                operand = ops.contended_params_operand(
+                    p, engines, torch.float32, TILE_ROWS, p.n, bb)
+                kw = dict(grid_txns=p.n, num_engines=engines,
+                          burst_beats=bb)
+                got = rst_contend_read(operand, buf, **kw)
+                want = rst_contend_read_plain(operand, buf, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"full-size rst_contend_read {pattern} "
+                         f"N={engines} {arbitration}: max abs err "
+                         f"{(got - want).abs().max().item()} (must be "
+                         f"exact)")
+        print(f"full size rst_contend_read {pattern} (N in {ENGINES}, "
+              f"W=256 MiB per engine, n={p.n}) equals its plain version "
+              f"exactly under {[g for g, _ in GRANTS]}")
     del buf
     mix = mix_readers()
     buf = ops.make_mix_working_buffer(mix, torch.float32)
@@ -617,6 +635,21 @@ def contention_checksum(p, engines: int, bb: int, mix=None) -> float:
     return out.to(torch.float64).sum().item()
 
 
+def check_checksum(label: str, got: float, expected: float,
+                   txns: int) -> None:
+    """Fails unless a backend's checksum equals the plain version's:
+    exactly while a checksum element, the sum of one element of at most
+    250 from each of `txns` transactions, stays under 2**24; within rtol
+    1e-5 beyond."""
+    if txns * 250 < 2 ** 24:
+        if got != expected:
+            fail(f"{label}: checksum {got} != {expected} from the plain "
+                 f"version (must be exact)")
+    elif not math.isclose(got, expected, rel_tol=1e-5):
+        fail(f"{label}: checksum {got} differs from the plain version's "
+             f"{expected} beyond rtol 1e-5")
+
+
 def contention_path():
     import torch
 
@@ -674,17 +707,11 @@ def contention_path():
         if not (math.isfinite(gbps) and 0 < gbps <= 1.1 * peak_gbps):
             fail(f"{label} {pt.arbitration}: {gbps} GB/s is not in "
                  f"(0, {1.1 * peak_gbps:.0f}]")
-        expected = contention_checksum(p, pt.num_engines, bb, pt.mix)
         got = res.detail["checksum"]
-        largest = (sum(q.n for q in pt.mix.params) if pt.mix is not None
-                   else pt.num_engines * p.n) * 250
-        if largest < 2 ** 24:
-            if got != expected:
-                fail(f"{label} {pt.arbitration}: checksum {got} != "
-                     f"{expected} from the plain version (must be exact)")
-        elif not math.isclose(got, expected, rel_tol=1e-5):
-            fail(f"{label} {pt.arbitration}: checksum {got} differs from "
-                 f"the plain version's {expected} beyond rtol 1e-5")
+        check_checksum(f"{label} {pt.arbitration}", got,
+                       contention_checksum(p, pt.num_engines, bb, pt.mix),
+                       sum(q.n for q in pt.mix.params)
+                       if pt.mix is not None else pt.num_engines * p.n)
         if pt.mix is None and pt.num_engines == 1:
             operand = ops.params_operand(p, torch.float32, TILE_ROWS)
             buf = ops.make_working_buffer(p, torch.float32)
@@ -1072,6 +1099,327 @@ def measure_contention(launches, errors, smi, baseline):
             ("rst_contend_mix_read", "src/repro/kernels/rst_contend.py:146"))]
 
 
+# Phase 6: the card's shapes for the measured roofline on `cuda` (every
+# probe a contention kernel at B = its 4 KiB tile over 256 MiB windows),
+# and the H100 SXM data sheet's ridge, 989.4 TFLOP/s over 3.35 TB/s.
+ROOFLINE_CARD = dict(chip="h100_sxm", bursts=(4096,),
+                     strides=(4096, 4 * 4096), engines=(1, 4), n=FULL_N,
+                     w=256 << 20)
+RIDGE_AI = 989.4e12 / PEAK_BYTES_PER_S
+GRID_REL = 1e-9
+
+
+def _tied(res, rel=GRID_REL) -> bool:
+    """A model bound within `rel` of another: either name is right."""
+    if res.bound not in ("bus/ccd", "bank", "faw"):
+        return False
+    vals = sorted(res.detail[b] for b in ("bus/ccd", "bank", "faw"))
+    return vals[-1] - vals[-2] <= rel * abs(vals[-1])
+
+
+def _close(a: float, b: float, rel: float = GRID_REL,
+           abs_tol: float = 0.0) -> bool:
+    return math.isclose(a, b, rel_tol=rel, abs_tol=abs_tol)
+
+
+def check_grid(label, gbps, bound, queueing, want):
+    """Fails unless the arrays equal the wanted per-point results at rel
+    1e-9, with bound names equal wherever the wanted result is not a
+    tie; returns the number of ties whose names differ."""
+    ties = 0
+    for i, res in enumerate(want):
+        if not _close(gbps[i], res.aggregate_gbps):
+            fail(f"{label}: point {i} gbps {gbps[i]!r} != "
+                 f"{res.aggregate_gbps!r} beyond rel {GRID_REL}")
+        if not _close(queueing[i], res.queueing_delay_cycles, abs_tol=1e-9):
+            fail(f"{label}: point {i} queueing {queueing[i]!r} != "
+                 f"{res.queueing_delay_cycles!r}")
+        if bound[i] != res.bound:
+            if not _tied(res):
+                fail(f"{label}: point {i} bound {bound[i]} != "
+                     f"{res.bound} away from a tie")
+            ties += 1
+    return ties
+
+
+def grid_split_line(res) -> str:
+    sp = res.split
+    return (f"wall {res.elapsed_seconds * 1e3:.3f} ms = host prep "
+            f"{sp.prep_s * 1e3:.3f} ms + device {sp.device_s * 1e3:.3f} ms "
+            f"(copies in, evaluation, copies out, ending in a synchronize)"
+            f" + host lanes {sp.host_lanes_s * 1e3:.3f} ms + result "
+            f"mapping {sp.map_s * 1e3:.3f} ms; "
+            f"{res.points_per_second:.0f} pts/s")
+
+
+def profile_grid(fn):
+    """Device kernels and their device time in one call, from
+    torch.profiler; None where the profiler reads no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, device_us = 0, 0.0
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            kernels += 1
+            device_us += ev.device_time
+    return (kernels, device_us / 1e3) if kernels else None
+
+
+def roofline_shapes(env, launches: int, switch) -> None:
+    """Splits the roofline's launches of rst_contend_read by kernel
+    shape, (stride, engines per port): N on same_channel, and on the
+    other tiers each distinct per-port count, evaluated once a probe.
+    For each shape: one probe run again through Sweep on `cuda`, its
+    checksum held against the plain version's and its launches counted;
+    the time of a launch from the median of the roofline's own
+    same_channel repeats of the shape; the bound from the distinct tiles
+    the shape reads.  Fails unless the shapes' launches add up to
+    `launches`."""
+    import collections
+    import statistics
+
+    import torch
+
+    from repro_torch.core import HBM, RSTParams, Sweep
+    from repro_torch.core.engine import placement_port_counts
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rst_contend import rst_contend_read
+
+    shapes = collections.Counter()
+    for pt in env.points:
+        counts = ([pt.num_engines] if pt.placement == "same_channel"
+                  else placement_port_counts(switch, pt.placement,
+                                             pt.num_engines)[1])
+        for engines in set(counts):
+            shapes[(pt.stride, engines)] += 1
+    tile = TILE_ROWS * 128 * 4
+    n, w = ROOFLINE_CARD["n"], ROOFLINE_CARD["w"]
+    total, gap = 0, 0.0
+    for (stride, engines), probes in sorted(shapes.items()):
+        p = RSTParams(n=n, b=tile, s=stride, w=w)
+        label = f"S={stride // tile} tiles N={engines}"
+        rst_contend_read.launches = 0
+        (r,) = Sweep(HBM, backend="cuda").add_contention(
+            p, num_engines=engines).run()
+        torch.cuda.synchronize()
+        per_probe = rst_contend_read.launches
+        bb = ops._resolve_grant_beats("round_robin", 1, n)
+        check_checksum(f"roofline shape {label}", r.value.detail["checksum"],
+                       contention_checksum(p, engines, bb), engines * n)
+        repeats = [q.gbps for q in env.points
+                   if (q.placement, q.num_engines, q.stride)
+                   == ("same_channel", engines, stride)]
+        ms = engines * n * tile / statistics.median(repeats) / 1e6
+        windows = w // tile
+        distinct = engines * min(n, windows // math.gcd(stride // tile,
+                                                        windows))
+        bound_ms = distinct * tile / PEAK_BYTES_PER_S * 1e3
+        count = probes * per_probe
+        total += count
+        gap += count * (ms - bound_ms)
+        print(f"roofline shape {label}: {probes} probes x {per_probe} "
+              f"launches = {count}; {ms:.5f} ms a launch (from the median "
+              f"of {len(repeats)} same_channel repeats, "
+              f"{statistics.median(repeats):.3f} GB/s), bound "
+              f"{bound_ms:.5f} ms ({distinct} distinct 4 KiB tiles read "
+              f"once), launches x (time - bound) = "
+              f"{count * (ms - bound_ms):.3f} ms; checksum of a re-run "
+              f"equals the plain version's")
+    if total != launches:
+        fail(f"the roofline's launches by shape add up to {total}, not "
+             f"the {launches} counted")
+    print(f"roofline launches of rst_contend_read, each priced at its own "
+          f"shape: {total} launches, {gap:.3f} ms above their bounds")
+
+
+def grid_tier(smi):
+    """Phase 6: the 10,368-point grid through `torchgrid` on the card,
+    held against the CPU and the per-point model; its timing split; the
+    measured roofline on `cuda` at the card's shapes; the quick envelope
+    on `torchgrid` against `sim`.  Returns the roofline's launches of
+    rst_contend_read."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch import bench
+    from repro_torch.core import HBM, Sweep
+    from repro_torch.core import roofline_empirical as rf
+    from repro_torch.core import timing_torch
+    from repro_torch.core.switch import PLACEMENTS, SwitchModel
+    from repro_torch.core.channels import topology_for
+    from repro_torch.kernels.rst_contend import rst_contend_read
+
+    phase("6. grid tier and measured roofline on the card")
+    print(f"card: {smi}")
+    axes = bench.grid_axes()
+
+    # (a) the grid on the card against the grid on the CPU and against
+    # the per-point model.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    cold = timing_torch.evaluate_grid(HBM, axes)
+    warm_runs = [timing_torch.evaluate_grid(HBM, axes) for _ in range(5)]
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    warm = sorted(warm_runs, key=lambda r: r.elapsed_seconds)[2]
+    host = timing_torch.evaluate_grid(HBM, axes, device="cpu")
+    routes = {r: cold.split.routes.get(r, 0)
+              for r in timing_torch._ROUTES}
+    print(f"grid: {cold.size} points over {sum(routes.values())} lanes; "
+          f"lanes per route {routes} (numpy and mixnumpy lanes run on "
+          f"the host)")
+    ties = check_grid("grid on the card vs on the CPU", cold.gbps,
+                      cold.bound, cold.queueing_delay_cycles, host.results())
+    for run in warm_runs:
+        if not (np.array_equal(run.gbps, cold.gbps)
+                and np.array_equal(run.bound, cold.bound)):
+            fail("a warm grid call differs from the cold one")
+    idx, sample = bench.grid_sample(axes)
+    sweep = Sweep(HBM, backend="sim")
+    for pt in sample:
+        sweep.add_point(pt)
+    t0 = time.perf_counter()
+    per_point = [r.value for r in sweep.run()]
+    numpy_s = time.perf_counter() - t0
+    ties += check_grid("grid on the card vs timing_model per point",
+                       cold.gbps[idx], cold.bound[idx],
+                       cold.queueing_delay_cycles[idx], per_point)
+    print(f"grid on the card == grid on the CPU ({cold.size} points) and "
+          f"== timing_model per point ({len(sample)} evenly spaced "
+          f"points) at rel {GRID_REL}; bound names differ at {ties} "
+          f"tie(s)")
+    # Every lane of the grid is periodic; the full-expansion and mixed
+    # evaluators are held on the bench's mixed requests and on the same
+    # tuples cut to short, non-periodic streams (no exclusive grants).
+    reqs = bench.grid_mix_requests(axes)
+    for p in axes.params[:6]:
+        short = dataclasses.replace(p, n=300)
+        for op in ("read", "write", "duplex"):
+            for n_eng, bb in ((1, 1), (3, 4), (4, 2)):
+                reqs.append(("cont", short, "RBC", op, n_eng,
+                             "round_robin" if bb == 1 else "burst", bb,
+                             "same_channel"))
+    lanes = timing_torch.GridSplit()
+    on_card = timing_torch.evaluate_points(HBM, reqs, split=lanes)
+    on_host = timing_torch.evaluate_points(HBM, reqs, device="cpu")
+    ties = check_grid("full and mixed lanes on the card vs on the CPU",
+                      [r.aggregate_gbps for r in on_card],
+                      [r.bound for r in on_card],
+                      [r.queueing_delay_cycles for r in on_card], on_host)
+    print(f"{len(reqs)} requests on the full and mixed evaluators (lanes "
+          f"per route {lanes.routes}) on the card == on the CPU at rel "
+          f"{GRID_REL}; bound names differ at {ties} tie(s)")
+
+    # (b) where the time goes.
+    print(f"grid cold: {grid_split_line(cold)}")
+    warm_pps = [r.points_per_second for r in warm_runs]
+    print(f"grid warm (median of 5, pts/s "
+          f"{' '.join(f'{v:.0f}' for v in warm_pps)}): "
+          f"{grid_split_line(warm)}")
+    prof = profile_grid(lambda: timing_torch.evaluate_grid(HBM, axes))
+    if prof is None:
+        print("grid warm kernels: not measured (the profiler read no "
+              "device time)")
+    else:
+        print(f"grid warm kernels: {prof[0]} device kernels and copies, "
+              f"{prof[1]:.3f} ms of device time (torch.profiler); device "
+              f"busy {prof[1] / (warm.elapsed_seconds * 1e3) * 100:.2f} % "
+              f"of the median warm wall, idle the rest")
+    print(f"grid peak device memory: {peak_mem} bytes "
+          f"({peak_mem / 2**20:.1f} MiB, torch.cuda.max_memory_allocated)")
+    print(f"grid on the host CPU, for reference (not a card number): "
+          f"{grid_split_line(host)}")
+    print(f"timing_model per point (host CPU yardstick): {len(sample)} "
+          f"points in {numpy_s * 1e3:.3f} ms, "
+          f"{len(sample) / numpy_s:.1f} pts/s; the card's warm grid is "
+          f"{statistics.median(warm_pps) / (len(sample) / numpy_s):.0f}x")
+    for name, us, derived in bench.bench_grid(quick=True):
+        print(f"bench --grid --quick: {name},{us:.0f},{derived}")
+
+    # (c) the measured roofline on `cuda` at the card's shapes.
+    rst_contend_read.launches = 0
+    t0 = time.perf_counter()
+    env = rf.measure_envelope(HBM, "cuda", **ROOFLINE_CARD)
+    torch.cuda.synchronize()
+    roof_s = time.perf_counter() - t0
+    launches = rst_contend_read.launches
+    print(f"roofline_empirical on cuda ({ROOFLINE_CARD}): "
+          f"{len(env.points)} probes in {roof_s:.3f} s, rst_contend_read "
+          f"launched {launches} times")
+    if launches <= 0:
+        fail("the roofline on cuda launched rst_contend_read no time")
+    peak = PEAK_BYTES_PER_S / 1e9
+    top = max(env.points, key=lambda q: q.gbps)
+    repeats = [q.gbps for q in env.points
+               if (q.placement, q.num_engines, q.stride)
+               == (top.placement, top.num_engines, top.stride)]
+    print(f"roofline peak_gbps={env.peak_gbps:.3f} against the data "
+          f"sheet's {peak:.0f} GB/s ({env.peak_gbps / peak * 100:.1f} %); "
+          f"knee_ai={env.knee_ai():.3f} FLOP/B against the data sheet's "
+          f"ridge {RIDGE_AI:.3f} FLOP/B; card={smi}")
+    print(f"roofline peak_gbps is the largest of {len(repeats)} repeats "
+          f"of the {top.placement} N={top.num_engines} "
+          f"S={top.stride // 4096} tiles probe (one per address policy, "
+          f"which the card ignores): median "
+          f"{statistics.median(repeats):.3f} GB/s, range "
+          f"{min(repeats):.3f}-{max(repeats):.3f}")
+    if not (math.isfinite(env.peak_gbps)
+            and 0 < env.peak_gbps <= 1.1 * peak):
+        fail(f"roofline peak {env.peak_gbps} GB/s is not in "
+             f"(0, {1.1 * peak:.0f}]: work was skipped")
+    switch = SwitchModel(topology_for(HBM))
+    for plc in PLACEMENTS:
+        cap = switch.capacity_cap_gbps(plc)
+        agg = env.placement_aggregate_gbps[plc]
+        if plc == "same_channel":
+            label = "a card number"
+        elif cap is not None and agg >= cap * (1 - 1e-12):
+            label = (f"capped by the modeled U280 fabric ({cap:.1f} GB/s),"
+                     f" not a card number")
+        else:
+            label = ("a sum of per-port card samples taken one port at a "
+                     "time, not a concurrent card number")
+        print(f"roofline tier {plc}: per_engine_gbps="
+              f"{env.placement_gbps[plc]:.3f} aggregate_gbps={agg:.3f} "
+              f"({label})")
+    print("roofline per-policy entries (the card ignores the address "
+          "policy: each is a repeat of one mapping, measured again): "
+          + " ".join(f"{pol}={g:.3f}"
+                     for pol, g in sorted(env.policy_gbps.items())))
+    roofline_shapes(env, launches, switch)
+
+    # (d) the quick envelope on `torchgrid` (the card) equals `sim`'s.
+    grid_env = rf.measure_envelope(HBM, "torchgrid", quick=True)
+    sim_env = rf.measure_envelope(HBM, "sim", quick=True)
+    pairs = [("peak_gbps", grid_env.peak_gbps, sim_env.peak_gbps)]
+    for field in ("placement_gbps", "placement_aggregate_gbps",
+                  "policy_gbps"):
+        a, b = getattr(grid_env, field), getattr(sim_env, field)
+        if set(a) != set(b):
+            fail(f"envelope {field} keys differ: {sorted(a)} {sorted(b)}")
+        pairs += [(f"{field}[{k}]", a[k], b[k]) for k in b]
+    if len(grid_env.points) != len(sim_env.points):
+        fail("the torchgrid and sim envelopes have different probes")
+    pairs += [(f"points[{i}]", a.gbps, b.gbps)
+              for i, (a, b) in enumerate(zip(grid_env.points,
+                                             sim_env.points))]
+    for name, a, b in pairs:
+        if not _close(a, b):
+            fail(f"envelope {name}: torchgrid {a!r} != sim {b!r}")
+    print(f"quick envelope on torchgrid (card) == on sim at rel "
+          f"{GRID_REL}: peak_gbps={grid_env.peak_gbps:.3f} "
+          f"knee_ai={grid_env.knee_ai():.3f} points={len(grid_env.points)}")
+    return launches
+
+
 def main() -> None:
     name, count, smi = environment()
     sys.path.insert(0, SRC)
@@ -1087,6 +1435,10 @@ def main() -> None:
     launches.update(contention_path())
     kernels = measure(launches, errors, smi, baseline)
     kernels += measure_contention(launches, errors, smi, baseline)
+    roofline_launches = grid_tier(smi)
+    for k in kernels:
+        if k["name"] == "rst_contend_read":
+            k["launches"] += roofline_launches
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,6 +13,10 @@ write and duplex streams with the CUDA kernels on the card, naming the
 card beside each number.  With no CUDA card the device rung fails: a host
 time is never printed as a device number.
 
+``--grid`` runs only the grid-evaluation ladder (`bench_grid`): the
+10,368-point HBM cross-product through the batched `torchgrid` tier on
+the card, against the per-point NumPy model on a sample.
+
 ``--json PATH`` also writes the rows (plus totals) as JSON;
 ``--experiments name1,name2`` restricts the registry suite (unknown names
 fail with the registered list).  ``--engines N|MIX``, ``--arbitration
@@ -22,7 +26,7 @@ reference's CLI.
 
 Run: PYTHONPATH=src python -m repro_torch.bench [--quick] [--json PATH]
          [--experiments NAMES] [--engines N|MIX]
-         [--arbitration POLICY [--burst B]]
+         [--arbitration POLICY [--burst B]] [--grid]
 """
 from __future__ import annotations
 
@@ -194,6 +198,116 @@ def bench_h100_rst_kernel(quick=False):
     return rows
 
 
+def grid_axes(quick=False):
+    """The grid ladder's HBM cross-product (the reference ladder's axes):
+    n = 2^17, 18 RST tuples x 4 policies x 3 ops x N in {1, 2, 4, 8} x
+    4 grants x 3 placements = 10,368 points; --quick cuts it as the
+    reference does.  Every lane is exactly periodic (pow2 everything, no
+    exclusive grants), so the batched tier evaluates a two-window
+    steady state per lane while the per-point NumPy path expands every
+    command."""
+    from repro_torch.core import HBM, RSTParams
+    from repro_torch.core.address_mapping import policies_for
+    from repro_torch.core.timing_torch import GridAxes
+
+    n = 1 << 15 if quick else 1 << 17
+    nparams = 6 if quick else 18
+    params = tuple(RSTParams(n=n, b=32, s=256 << (i % 6),
+                             w=(256 << (i % 6)) * (1 << (i // 6)))
+                   for i in range(nparams))
+    return GridAxes(
+        params=params,
+        policies=(None,) + tuple(policies_for(HBM))[:3],
+        ops=("read", "write", "duplex"),
+        num_engines=(1, 4) if quick else (1, 2, 4, 8),
+        arbitrations=((("round_robin", 1), ("burst", 4)) if quick else
+                      (("round_robin", 1), ("burst", 2), ("burst", 4),
+                       ("burst", 8))),
+        placements=("same_channel", "same_switch", "cross_switch"))
+
+
+def grid_sample(axes, quick=False):
+    """An evenly spaced sample of the grid's points: (lane index, point)."""
+    pts = axes.sweep_points()
+    step = max(1, len(pts) // (8 if quick else 48))
+    return list(range(0, len(pts), step)), pts[::step]
+
+
+def grid_mix_requests(axes, quick=False):
+    """The ladder's heterogeneous engine-mix requests: three blends over
+    the first grid tuples at n = 2^11, short enough that every blend
+    stays on the stacked mixed-lane evaluator."""
+    import dataclasses
+
+    from repro_torch.core import EngineMix
+
+    reqs = []
+    for p in axes.params[: 3 if quick else 6]:
+        mp = dataclasses.replace(p, n=1 << 11)
+        for spec_str in ("3r+1w", "2r+2w", "2r+1w+1d"):
+            mix = EngineMix.from_spec(spec_str, mp)
+            reqs.append(("cont", mp, None, "read", len(mix),
+                         "round_robin", 1, "same_channel", mix))
+    return reqs
+
+
+def bench_grid(quick=False):
+    """The grid-evaluation ladder on the card: per-point NumPy on a
+    sample, the whole cross-product through `torchgrid` cold and warm,
+    the same split over `grid_mesh()`, and heterogeneous engine-mix
+    lanes.  Raises without a card."""
+    import torch
+
+    from repro_torch.core import HBM, Sweep
+    from repro_torch.core import timing_torch
+    from repro_torch.launch.mesh import grid_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_grid needs a CUDA card")
+    card = torch.cuda.get_device_name(0)
+    axes = grid_axes(quick)
+    _, sample = grid_sample(axes, quick)
+
+    # Rung 1: the per-point NumPy model on the sample (the path the
+    # batched tier exists to retire).
+    def run_numpy():
+        sweep = Sweep(HBM, backend="sim")
+        for pt in sample:
+            sweep.add_point(pt)
+        sweep.run()
+    _, numpy_us = _timed(run_numpy)
+    numpy_pps = len(sample) / (numpy_us * 1e-6)
+    rows = [("grid_per_point_numpy", numpy_us,
+             f"sampled={len(sample)};pts_per_s={numpy_pps:.0f}")]
+
+    # Rung 2: the whole cross-product in batched calls on the card.
+    cold, cold_us = _timed(lambda: timing_torch.evaluate_grid(HBM, axes))
+    warm, warm_us = _timed(lambda: timing_torch.evaluate_grid(HBM, axes))
+    pps = warm.size / (warm_us * 1e-6)
+    rows.append(("grid_torch_batched", warm_us,
+                 f"points={warm.size};pts_per_s={pps:.0f};"
+                 f"cold_s={cold_us * 1e-6:.3f};"
+                 f"speedup_vs_numpy={pps / numpy_pps:.0f}x;device={card}"))
+
+    # Rung 3: the lane axis split over every visible card.
+    mesh = grid_mesh()
+    timing_torch.evaluate_grid(HBM, axes, mesh=mesh)
+    shard, shard_us = _timed(
+        lambda: timing_torch.evaluate_grid(HBM, axes, mesh=mesh))
+    rows.append(("grid_sharded", shard_us,
+                 f"points={shard.size};devices={len(mesh)};"
+                 f"pts_per_s={shard.size / (shard_us * 1e-6):.0f}"))
+
+    # Rung 4: heterogeneous engine-mix lanes.
+    mix_reqs = grid_mix_requests(axes, quick)
+    timing_torch.evaluate_points(HBM, mix_reqs)
+    _, mix_us = _timed(lambda: timing_torch.evaluate_points(HBM, mix_reqs))
+    rows.append(("grid_hetero_mix", mix_us,
+                 f"points={len(mix_reqs)};"
+                 f"pts_per_s={len(mix_reqs) / (mix_us * 1e-6):.0f}"))
+    return rows
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.bench")
     ap.add_argument("--quick", action="store_true")
@@ -217,6 +331,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--burst", type=int, metavar="B", default=None,
                     help="beats per arbitration grant (with "
                          "--arbitration burst)")
+    ap.add_argument("--grid", action="store_true",
+                    help="run only the grid-evaluation ladder on the card "
+                         "(per-point NumPy, torchgrid cold and warm, "
+                         "sharded, mixed lanes)")
     args = ap.parse_args(argv)
     if args.engines is not None:
         args.engines = parse_engines_arg(args.engines)
@@ -232,12 +350,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             ap.error(f"--json: {args.json!r} is not a writable file path")
 
     print("name,us_per_call,derived")
-    suites = [
-        lambda: bench_experiments(q, args.experiments, args.engines,
-                                  args.arbitration, args.burst),
-        bench_table3_resources,
-        lambda: bench_h100_rst_kernel(q),
-    ]
+    if args.grid:
+        suites = [lambda: bench_grid(q)]
+    else:
+        suites = [
+            lambda: bench_experiments(q, args.experiments, args.engines,
+                                      args.arbitration, args.burst),
+            bench_table3_resources,
+            lambda: bench_h100_rst_kernel(q),
+        ]
     rows: List[dict] = []
     failures = 0
     t0 = time.perf_counter()
@@ -253,7 +374,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     wall_us = (time.perf_counter() - t0) * 1e6
 
     if args.json:
-        payload = {"benchmark": "shuhai-campaign-torch", "quick": q,
+        payload = {"benchmark": ("shuhai-grid-torch" if args.grid
+                                 else "shuhai-campaign-torch"), "quick": q,
                    "unix_time": time.time(), "wall_us": round(wall_us, 1),
                    "suite_us_total":
                        round(sum(r["us_per_call"] for r in rows), 1),

@@ -9,11 +9,15 @@ Public surface (each name mirrors `repro.core`):
   contended_throughput              — N engines sharing one channel port
                                       (ARBITRATION_POLICIES grant axis)
   Engine, Backend                   — engines + pluggable measurement
-                                      backends (register_backend): `sim`
-                                      and `cuda`; UnsupportedCapability
-                                      marks missing backend abilities
+                                      backends (register_backend): `sim`,
+                                      `cuda` and `torchgrid`;
+                                      UnsupportedCapability marks missing
+                                      backend abilities
   MemorySpec, register_spec         — registrable memory systems; HBM/DDR4
                                       (measured) + HBM3/DDR3 (modeled)
+  ChipSpec, register_chip           — accelerator peaks for rooflines:
+                                      TPU_V5E, H100_SXM
+  measure_envelope, RooflineEnvelope — the measured (ERT-style) roofline
   Experiment, run_experiment        — declarative paper-artifact registry
   ShuhaiCampaign                    — deprecated suite shims over the registry
   Sweep                             — batch-first campaign grids (memoized)
@@ -29,6 +33,7 @@ from repro_torch.core.channels import (CrossingLatencyTable, DDR4Topology,
                                        available_topologies, flat_topology,
                                        register_topology, topology_for)
 from repro_torch.core.engine import (Backend, CudaBackend, Engine,
+                                     TorchGridBackend,
                                      UnsupportedCapability,
                                      available_backends, get_backend,
                                      register_backend)
@@ -37,11 +42,18 @@ from repro_torch.core.experiments import (Experiment, all_experiments,
                                           experiments_for, get_experiment,
                                           register_experiment,
                                           run_experiment)
-from repro_torch.core.hwspec import (DDR3, DDR4, HBM, HBM3, MemorySpec,
-                                     available_specs, register_spec,
-                                     spec_by_name)
+from repro_torch.core.hwspec import (DDR3, DDR4, H100_SXM, HBM, HBM3,
+                                     TPU_V5E, ChipSpec, MemorySpec,
+                                     available_chips, available_specs,
+                                     chip_by_name, register_chip,
+                                     register_spec, spec_by_name)
 from repro_torch.core.latency import LatencyModule
 from repro_torch.core.params import EngineRegisters, RSTParams
+from repro_torch.core.roofline_empirical import (EnvelopePoint,
+                                                 RooflineEnvelope,
+                                                 build_envelope,
+                                                 config_ceiling_gbps,
+                                                 measure_envelope)
 from repro_torch.core.rst import addresses_np, addresses_torch, block_params
 from repro_torch.core.sweep import Sweep, SweepPoint, SweepResult
 from repro_torch.core.switch import PLACEMENTS, SwitchModel
@@ -59,13 +71,17 @@ __all__ = [
     "CrossingLatencyTable", "DDR4Topology", "HBMTopology", "SwitchTopology",
     "available_topologies", "flat_topology", "register_topology",
     "topology_for",
-    "Backend", "CudaBackend", "Engine", "UnsupportedCapability",
+    "EnvelopePoint", "RooflineEnvelope", "build_envelope",
+    "config_ceiling_gbps", "measure_envelope",
+    "Backend", "CudaBackend", "Engine", "TorchGridBackend",
+    "UnsupportedCapability",
     "available_backends", "get_backend", "register_backend",
     "EngineMix",
     "Experiment", "all_experiments", "experiments_for", "get_experiment",
     "register_experiment", "run_experiment",
-    "DDR3", "DDR4", "HBM", "HBM3", "MemorySpec", "available_specs",
-    "register_spec", "spec_by_name",
+    "DDR3", "DDR4", "HBM", "HBM3", "H100_SXM", "TPU_V5E", "ChipSpec",
+    "MemorySpec", "available_chips", "available_specs", "chip_by_name",
+    "register_chip", "register_spec", "spec_by_name",
     "LatencyModule",
     "EngineRegisters", "RSTParams",
     "addresses_np", "addresses_torch", "block_params",

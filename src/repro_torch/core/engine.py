@@ -4,16 +4,19 @@ Faithful to Sec. III-C-1: an engine owns one channel, has independent read
 and write modules, is configured purely through runtime registers, and is
 never the bottleneck.  Backends are *pluggable*: a :class:`Backend`
 implements the two primitive measurements (throughput, serial latency) for
-one execution substrate and registers itself by name.  Two ship built in:
+one execution substrate and registers itself by name.  Three ship built
+in:
 
-* ``sim``  — the calibrated DRAM timing model (reproduces the paper's
-             U280 numbers on the host);
-* ``cuda`` — the RST engines as hand-written CUDA kernels
-             (kernels/rst_read.py, rst_write.py, rst_contend.py) on the
-             card; their plain PyTorch versions serve a backend built
-             with ``device="cpu"``.
+* ``sim``       — the calibrated DRAM timing model (reproduces the
+                  paper's U280 numbers on the host);
+* ``cuda``      — the RST engines as hand-written CUDA kernels
+                  (kernels/rst_read.py, rst_write.py, rst_contend.py) on
+                  the card; their plain PyTorch versions serve a backend
+                  built with ``device="cpu"``;
+* ``torchgrid`` — the same timing model as ``sim``, evaluated in batches
+                  of tensors on the card (core/timing_torch.py).
 
-`register_backend` adds a third; everything above (Engine, Sweep, the
+`register_backend` adds another; everything above (Engine, Sweep, the
 experiment registry) resolves backends through `get_backend` — see
 DESIGN.md §6.
 
@@ -166,7 +169,7 @@ def _arbitration_kwargs(arbitration: str, burst_beats: int,
 
 
 # ---------------------------------------------------------------------------
-# Placement decomposition
+# Placement decomposition (shared by Engine and the torchgrid batch path)
 # ---------------------------------------------------------------------------
 
 
@@ -439,7 +442,8 @@ class CudaBackend(Backend):
                     f"the concurrent-access cuda kernel measures read "
                     f"traffic only, got mix {mix.describe()!r} with ops "
                     f"{sorted(set(mix.ops))}; route write/duplex engines "
-                    f"through the sim placement paths (DESIGN.md §13)")
+                    f"through the sim/torchgrid placement paths "
+                    f"(DESIGN.md §13)")
             sample = ops.measure_contended_mix_bandwidth(
                 mix, arbitration=arbitration, burst_beats=burst_beats,
                 device=self.device)
@@ -464,6 +468,57 @@ class CudaBackend(Backend):
             arbitration=arbitration,
             burst_beats=burst_beats,
             mix=mix)
+
+
+class TorchGridBackend(Backend):
+    """Batched PyTorch evaluator over the same timing model
+    (core/timing_torch.py), the counterpart of the reference's `jaxgrid`.
+
+    Per-point protocol calls evaluate a one-lane batch; the real win is
+    the batch path — :meth:`evaluate_points` evaluates a whole campaign
+    cross-product in a few batched calls, which ``Sweep.run()`` uses to
+    prefill its memo caches (grid prefill).  Deterministic like ``sim``
+    — results are a pure function of (spec, params, policy, op,
+    contention axes) — but within ``timing_torch.REL_TOLERANCE`` of the
+    NumPy path rather than bit-identical.  `device` is the card by
+    default; ``device="cpu"`` evaluates on the host.  Serial latency has
+    no batched port (its refresh-epoch loop is data-dependent): latency
+    stays on sim.
+    """
+
+    name = "torchgrid"
+    deterministic = True
+    supports_latency = False
+    supports_contention = True
+    supports_grid = True
+
+    def __init__(self, device: "torch.device | str | None" = None):
+        self.device = device
+
+    def throughput(self, spec, p, mapping, *, op="read"):
+        from repro_torch.core import timing_torch  # imports this module
+        return timing_torch.throughput(p, mapping, spec, op=op,
+                                       device=self.device)
+
+    def contended_throughput(self, spec, p, mapping, *, num_engines,
+                             op="read", arbitration="round_robin",
+                             burst_beats=1, mix=None):
+        from repro_torch.core import timing_torch  # imports this module
+        if mix is not None:
+            return timing_torch.contended_throughput_mix(
+                mix, mapping, spec, arbitration=arbitration,
+                burst_beats=burst_beats, device=self.device)
+        return timing_torch.contended_throughput(
+            p, mapping, spec, num_engines=num_engines, op=op,
+            arbitration=arbitration, burst_beats=burst_beats,
+            device=self.device)
+
+    def evaluate_points(self, spec, reqs):
+        """Batched entry point (not part of the per-point protocol): one
+        batched evaluation of a flat list of sweep-style requests — see
+        ``timing_torch.evaluate_points`` for the request format."""
+        from repro_torch.core import timing_torch  # imports this module
+        return timing_torch.evaluate_points(spec, reqs, device=self.device)
 
 
 _BACKEND_REGISTRY: Dict[str, Backend] = {}
@@ -496,6 +551,7 @@ def get_backend(name: str) -> Backend:
 
 register_backend(SimBackend())
 register_backend(CudaBackend())
+register_backend(TorchGridBackend())
 
 
 # ---------------------------------------------------------------------------

@@ -1147,3 +1147,64 @@ register_experiment(Experiment(
          f"{per[(policy, bb)]['aggregate_gbps']:.2f}")
         for label, per in r.items() for (policy, bb) in per],
 ))
+
+
+# ---------------------------------------------------------------------------
+# Grid cross-product — the full knob space of Sec. V/VI as one experiment.
+# Runs on every backend; on `torchgrid` the Sweep prefill evaluates the
+# whole product in batched calls (core/timing_torch.py), which is what
+# makes the 10^4+-point defaults interactive.
+# ---------------------------------------------------------------------------
+
+
+def _grid_xp_plan(spec, o):
+    pols = (None,) + tuple(policies_for(spec))
+    out = []
+    for pol in pols:
+        for s in o["strides"]:
+            p = RSTParams(n=o["n"], b=spec.min_burst, s=s, w=o["w"])
+            for op in o["ops"]:
+                for n_eng in o["engines"]:
+                    for arb, bb in o["arbitrations"]:
+                        for plc in o["placements"]:
+                            key = (pol or DEFAULT_POLICY[spec.name], s,
+                                   op, n_eng, arb, bb, plc)
+                            out.append((key, _cont_point(
+                                p, n_eng, policy=pol, op=op,
+                                arbitration=arb, burst_beats=bb,
+                                placement=plc)))
+    return out
+
+
+def _grid_xp_derive(spec, keyed, o):
+    gbps = {k: r.aggregate_gbps for k, r in keyed}
+    best = max(gbps, key=gbps.__getitem__)
+    worst = min(gbps, key=gbps.__getitem__)
+    return {"points": len(gbps), "gbps": gbps,
+            "best": {"key": best, "gbps": gbps[best]},
+            "worst": {"key": worst, "gbps": gbps[worst]}}
+
+
+def _grid_xp_summarize(spec, r):
+    spread = (r["best"]["gbps"] / r["worst"]["gbps"]
+              if r["worst"]["gbps"] else float("inf"))
+    return (f"points={r['points']};best={r['best']['gbps']:.1f};"
+            f"worst={r['worst']['gbps']:.2f};spread={spread:.0f}x")
+
+
+register_experiment(Experiment(
+    name="grid_cross_product",
+    artifact="Sec. V-VI (grid)",
+    title="Policy × stride × op × engines × arbitration × placement grid",
+    plan=_grid_xp_plan,
+    derive=_grid_xp_derive,
+    defaults={"n": 4096, "w": 0x1000000, "strides": (64, 256, 1024),
+              "ops": ("read", "write"), "engines": (1, 2, 4),
+              "arbitrations": (("round_robin", 1), ("burst", 4)),
+              "placements": PLACEMENTS},
+    quick={"strides": (64,), "engines": (1, 4), "n": 1024},
+    summarize=_grid_xp_summarize,
+    flatten=lambda spec, r: [
+        ("_".join(str(f) for f in k), f"{v:.2f}")
+        for k, v in r["gbps"].items()],
+))

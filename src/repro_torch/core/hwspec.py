@@ -1,7 +1,6 @@
 """Hardware specifications for the benchmarked / targeted memory systems.
 
-Two families live here (the accelerator chip specs of the reference
-package arrive with the roofline port):
+Three families live here:
 
 * The paper's platforms — the Xilinx Alveo U280 HBM2 subsystem and its DDR4
   channels (Section II / IV-A of the paper).  These drive the timing
@@ -10,6 +9,9 @@ package arrive with the roofline port):
   as *modeled* specs: geometry and timings come from the respective JEDEC
   generations, latency anchors are scaled from the measured U280 numbers.
   They are the proof that the framework is spec-driven, not measurements.
+* The accelerator chips whose peaks bound a roofline: the reference's TPU
+  v5e entry, kept so the model backends derive what the reference
+  derives, and the NVIDIA H100 SXM the port measures on.
 
 Specs are *registrable*: :func:`register_spec` adds a new memory system to
 the library, and every layer above (address mapping, engines, sweeps, the
@@ -342,3 +344,86 @@ def spec_by_name(name: str) -> MemorySpec:
 for _spec in (HBM, DDR4, HBM3, DDR3):
     register_spec(_spec)
 del _spec
+
+
+# ---------------------------------------------------------------------------
+# Accelerator chip specs (roofline)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipSpec:
+    """Per-chip accelerator constants used for roofline terms."""
+
+    name: str
+    peak_bf16_flops: float        # FLOP/s
+    hbm_bandwidth: float          # B/s
+    hbm_bytes: int                # capacity per chip
+    vmem_bytes: int               # on-chip vector memory
+    ici_link_bandwidth: float     # B/s per link, per direction
+    ici_links: int                # links per chip (2D torus on v5e)
+
+    @property
+    def ridge_intensity(self) -> float:
+        """FLOP/byte at which compute and HBM terms are equal."""
+        return self.peak_bf16_flops / self.hbm_bandwidth
+
+
+# The reference's constants: 197 TFLOP/s bf16; 819 GB/s HBM; ~50 GB/s/link
+# ICI.
+TPU_V5E = ChipSpec(
+    name="tpu_v5e",
+    peak_bf16_flops=197e12,
+    hbm_bandwidth=819e9,
+    hbm_bytes=16 * 1024**3,
+    vmem_bytes=128 * 1024**2,
+    ici_link_bandwidth=50e9,
+    ici_links=4,
+)
+
+# NVIDIA's H100 SXM data sheet: 989.4 TFLOP/s dense bf16, 3.35 TB/s HBM3,
+# 80 GB.  The on-chip memory is the shared memory of the 132 SMs (228 KiB
+# each), and the links are the 18 NVLink links at 25 GB/s per direction.
+H100_SXM = ChipSpec(
+    name="h100_sxm",
+    peak_bf16_flops=989.4e12,
+    hbm_bandwidth=3.35e12,
+    hbm_bytes=80 * 10**9,
+    vmem_bytes=132 * 228 * 1024,
+    ici_link_bandwidth=25e9,
+    ici_links=18,
+)
+
+
+_CHIP_REGISTRY: Dict[str, ChipSpec] = {}
+
+
+def register_chip(chip: ChipSpec, *, override: bool = False) -> ChipSpec:
+    """Register an accelerator chip for name-based roofline lookups.
+
+    Mirrors `register_spec`: roofline consumers
+    (`core/roofline_empirical.py`) resolve compute peaks through this
+    registry instead of hardcoding a part.
+    """
+    if chip.name in _CHIP_REGISTRY and not override:
+        raise ValueError(
+            f"chip {chip.name!r} already registered; pass override=True")
+    _CHIP_REGISTRY[chip.name] = chip
+    return chip
+
+
+def available_chips() -> List[str]:
+    """Names of every registered chip, registration order."""
+    return list(_CHIP_REGISTRY)
+
+
+def chip_by_name(name: str) -> ChipSpec:
+    chip = _CHIP_REGISTRY.get(name)
+    if chip is None:
+        raise ValueError(
+            f"unknown chip {name!r}; have {available_chips()}")
+    return chip
+
+
+register_chip(TPU_V5E)
+register_chip(H100_SXM)

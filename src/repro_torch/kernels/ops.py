@@ -300,8 +300,8 @@ def _mix_block_rows(mix: EngineMix, dtype: torch.dtype, burst_rows: int,
             raise ValueError(
                 f"the contention kernel measures read engines only; entry "
                 f"{k} of mix {mix.describe()!r} is {op!r} — route "
-                f"write/duplex engines through the sim placement paths "
-                f"(DESIGN.md §13)")
+                f"write/duplex engines through the sim/torchgrid placement "
+                f"paths (DESIGN.md §13)")
         if p.b != tb:
             raise ValueError(
                 f"entry {k} burst B={p.b} does not match tile bytes {tb} "
@@ -369,7 +369,8 @@ def measure_contended_mix_bandwidth(mix: EngineMix, *,
             raise ValueError(
                 f"the contention kernel measures read engines only; mix "
                 f"{mix.describe()!r} is all-{op} — route write/duplex "
-                f"engines through the sim placement paths (DESIGN.md §13)")
+                f"engines through the sim/torchgrid placement paths "
+                f"(DESIGN.md §13)")
         return measure_contended_bandwidth(
             p, num_engines=len(mix), arbitration=arbitration,
             burst_beats=burst_beats, dtype=dtype, burst_rows=burst_rows,

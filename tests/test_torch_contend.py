@@ -69,7 +69,7 @@ MIX_CASES = (
        ([[1, 8, 0, 20], [2, 8, 8, 5]], 4, 8)])
 
 # The reference names its own substrate where the port names the card's.
-_SUBSTRATE = [("pallas", "cuda"), ("sim/jaxgrid", "sim"),
+_SUBSTRATE = [("pallas", "cuda"), ("sim/jaxgrid", "sim/torchgrid"),
               ("on TPU the burst is the BlockSpec tile",
                "the burst is the kernel's tile")]
 

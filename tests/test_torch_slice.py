@@ -36,7 +36,8 @@ PORTED = ["fig4_refresh", "table4_idle_latency", "fig6_address_mapping",
           "duplex_rw_sweep", "table4_write_latency_classes",
           "fig9_channel_contention", "contention_scaling_sweep",
           "arbitration_granularity_sweep", "fig9_cross_switch_contention",
-          "contended_latency_classes", "engine_mix_sweep"]
+          "contended_latency_classes", "engine_mix_sweep",
+          "grid_cross_product", "roofline_empirical"]
 
 
 def test_registry_holds_the_ported_experiments():
@@ -202,7 +203,9 @@ def _foreign(name):
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
-    assert "repro_torch.kernels.rst_read" in mods
+    assert {"repro_torch.kernels.rst_read", "repro_torch.core.timing_torch",
+            "repro_torch.core.roofline_empirical",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
