@@ -47,8 +47,21 @@ Phases, each fatal on failure:
      256 MiB windows), whose rst_contend_read launches are counted with
      the counter set to 0 just before and read just after (and added to
      the kernel's launches in the kernels line), and the quick envelope
-     on torchgrid against sim; then one JSON line of kernels, the
-     nvidia-smi line, and the final JSON line.
+     on torchgrid against sim;
+  7. service, tuner and roofline report through cuda, at phase 6's
+     shapes: a CampaignService with a cuda primary and sim fallback
+     serves layout_autotune and roofline_empirical twice each (cuda,
+     undegraded, the duplicates coalesced), a latency request (degraded
+     to sim with its reason) and a paper-burst request (a clean failure),
+     with rst_contend_read's launches counted against the probes the
+     plans make; tune_layout on cuda directly, held to its replay from
+     the scores it measured, with the probes above their modeled
+     ceilings counted; the same tune as a uniform read mix on the warm
+     sweep; a mix with a writer refused; a transient fault injected over
+     cuda, whose retry resumes; the measured report of the card's
+     envelope; and `python -m repro_torch.launch.roofline --measured
+     --backend cuda`, which must fail with the burst text; then one JSON
+     line of kernels, the nvidia-smi line, and the final JSON line.
 
 It imports torch and the port (repro_torch) only.
 """
@@ -1170,7 +1183,26 @@ def profile_grid(fn):
     return (kernels, device_us / 1e3) if kernels else None
 
 
-def roofline_shapes(env, launches: int, switch) -> None:
+def probe_shapes(points, switch):
+    """Measurements on `cuda` by kernel shape (stride, engines per port,
+    arbitration, grant beats) of (stride, placement, engines, arbitration,
+    grant beats) points: one a point on same_channel, one a distinct
+    per-port engine count on the other placements (the placement fold
+    measures each count once)."""
+    import collections
+
+    from repro_torch.core.engine import placement_port_counts
+
+    shapes = collections.Counter()
+    for stride, placement, engines, arbitration, beats in points:
+        counts = ([engines] if placement == "same_channel"
+                  else placement_port_counts(switch, placement, engines)[1])
+        for count in set(counts):
+            shapes[(stride, count, arbitration, beats)] += 1
+    return shapes
+
+
+def roofline_shapes(env, launches: int, switch):
     """Splits the roofline's launches of rst_contend_read by kernel
     shape, (stride, engines per port): N on same_channel, and on the
     other tiers each distinct per-port count, evaluated once a probe.
@@ -1179,27 +1211,24 @@ def roofline_shapes(env, launches: int, switch) -> None:
     the time of a launch from the median of the roofline's own
     same_channel repeats of the shape; the bound from the distinct tiles
     the shape reads.  Fails unless the shapes' launches add up to
-    `launches`."""
+    `launches`.  Returns each shape's (time, bound) in ms."""
     import collections
     import statistics
 
     import torch
 
     from repro_torch.core import HBM, RSTParams, Sweep
-    from repro_torch.core.engine import placement_port_counts
     from repro_torch.kernels import ops
     from repro_torch.kernels.rst_contend import rst_contend_read
 
     shapes = collections.Counter()
-    for pt in env.points:
-        counts = ([pt.num_engines] if pt.placement == "same_channel"
-                  else placement_port_counts(switch, pt.placement,
-                                             pt.num_engines)[1])
-        for engines in set(counts):
-            shapes[(pt.stride, engines)] += 1
+    for (stride, engines, _, _), probes in probe_shapes(
+            [(pt.stride, pt.placement, pt.num_engines, "round_robin", 1)
+             for pt in env.points], switch).items():
+        shapes[(stride, engines)] += probes
     tile = TILE_ROWS * 128 * 4
     n, w = ROOFLINE_CARD["n"], ROOFLINE_CARD["w"]
-    total, gap = 0, 0.0
+    total, gap, prices = 0, 0.0, {}
     for (stride, engines), probes in sorted(shapes.items()):
         p = RSTParams(n=n, b=tile, s=stride, w=w)
         label = f"S={stride // tile} tiles N={engines}"
@@ -1219,6 +1248,7 @@ def roofline_shapes(env, launches: int, switch) -> None:
         distinct = engines * min(n, windows // math.gcd(stride // tile,
                                                         windows))
         bound_ms = distinct * tile / PEAK_BYTES_PER_S * 1e3
+        prices[(stride, engines)] = (ms, bound_ms)
         count = probes * per_probe
         total += count
         gap += count * (ms - bound_ms)
@@ -1235,6 +1265,7 @@ def roofline_shapes(env, launches: int, switch) -> None:
              f"the {launches} counted")
     print(f"roofline launches of rst_contend_read, each priced at its own "
           f"shape: {total} launches, {gap:.3f} ms above their bounds")
+    return prices
 
 
 def grid_tier(smi):
@@ -1242,7 +1273,7 @@ def grid_tier(smi):
     held against the CPU and the per-point model; its timing split; the
     measured roofline on `cuda` at the card's shapes; the quick envelope
     on `torchgrid` against `sim`.  Returns the roofline's launches of
-    rst_contend_read."""
+    rst_contend_read and each kernel shape's (time, bound) in ms."""
     import dataclasses
     import statistics
 
@@ -1394,7 +1425,7 @@ def grid_tier(smi):
           "policy: each is a repeat of one mapping, measured again): "
           + " ".join(f"{pol}={g:.3f}"
                      for pol, g in sorted(env.policy_gbps.items())))
-    roofline_shapes(env, launches, switch)
+    prices = roofline_shapes(env, launches, switch)
 
     # (d) the quick envelope on `torchgrid` (the card) equals `sim`'s.
     grid_env = rf.measure_envelope(HBM, "torchgrid", quick=True)
@@ -1417,7 +1448,347 @@ def grid_tier(smi):
     print(f"quick envelope on torchgrid (card) == on sim at rel "
           f"{GRID_REL}: peak_gbps={grid_env.peak_gbps:.3f} "
           f"knee_ai={grid_env.knee_ai():.3f} points={len(grid_env.points)}")
-    return launches
+    return launches, prices
+
+
+# Phase 7: the campaign service, the layout tuner and the roofline report
+# through `cuda`, at the card's shapes of phase 6 (f32, B = 4 KiB tiles,
+# n = 65536 and W = 256 MiB per engine, N in {1, 4}).  The tuner's knobs:
+# every address policy (the card ignores it), round robin, 16-beat burst
+# and exclusive grants, the three placements.
+CAMPAIGN_TUNE = dict(b=4096, s=4096, w=256 << 20, n=FULL_N)
+TUNE_KNOBS = dict(arbitrations=("round_robin", "burst", "exclusive"),
+                  burst_beats=(16,))
+LATENCY_GAP = ("needs serial-latency measurements, which backend 'cuda' "
+               "does not provide")
+BURST_TEXT = "burst B=32 does not match tile bytes 4096"
+READ_ONLY_TEXT = "the concurrent-access cuda kernel measures read traffic only"
+
+
+def planned_probes(request, switch):
+    """The measurements a request's plan makes on `cuda`, by shape."""
+    from repro_torch.core import HBM
+    from repro_torch.core.experiments import plan_experiment
+
+    planned, _ = plan_experiment(request.experiment, HBM,
+                                 quick=request.quick,
+                                 **dict(request.overrides))
+    return probe_shapes([(pt.params.s, pt.placement, pt.num_engines,
+                          pt.arbitration, pt.burst_beats)
+                         for _, pt in planned], switch)
+
+
+def config_probes(configs, stride, switch):
+    """The measurements the tuner's configs make on `cuda`, by shape."""
+    from repro_torch.core.autotune import _mix_engines
+
+    return probe_shapes([(stride, cfg.placement, _mix_engines(cfg.engines),
+                          cfg.arbitration, cfg.burst_beats)
+                         for cfg in configs], switch)
+
+
+def price_launches(by_shape, prices) -> None:
+    """Prints the phase's launches by (stride, engines) shape, each priced
+    at phase 6c's time and bound of that shape."""
+    tile = TILE_ROWS * 128 * 4
+    gap = 0.0
+    for (stride, engines), count in sorted(by_shape.items()):
+        ms, bound_ms = prices[(stride, engines)]
+        gap += count * (ms - bound_ms)
+        print(f"phase 7 shape S={stride // tile} tiles N={engines}: {count} "
+              f"launches x ({ms:.5f} - {bound_ms:.5f}) ms = "
+              f"{count * (ms - bound_ms):.3f} ms above the bound (phase "
+              f"6c's time and bound of the shape)")
+    print(f"phase 7 launches of rst_contend_read, each priced at its own "
+          f"shape: {sum(by_shape.values())} launches, {gap:.3f} ms above "
+          f"their bounds")
+
+
+def check_shapes(shapes) -> None:
+    """Runs each kernel shape once more through Sweep on `cuda` and holds
+    its checksum against the plain version's (launches not counted)."""
+    import torch
+
+    from repro_torch.core import HBM, RSTParams, Sweep
+    from repro_torch.kernels import ops
+
+    tile = TILE_ROWS * 128 * 4
+    n, w = CAMPAIGN_TUNE["n"], CAMPAIGN_TUNE["w"]
+    for stride, engines, arbitration, beats in sorted(shapes):
+        p = RSTParams(n=n, b=tile, s=stride, w=w)
+        (r,) = Sweep(HBM, backend="cuda").add_contention(
+            p, num_engines=engines, arbitration=arbitration,
+            burst_beats=beats).run()
+        torch.cuda.synchronize()
+        bb = ops._resolve_grant_beats(arbitration, beats, n)
+        check_checksum(f"campaign shape S={stride // tile} tiles "
+                       f"N={engines} {arbitration} {beats}",
+                       r.value.detail["checksum"],
+                       contention_checksum(p, engines, bb), engines * n)
+    print(f"{len(shapes)} kernel shapes of the phase run again through "
+          f"Sweep on cuda: each checksum equals the plain version's")
+
+
+def report_tune(label, rep, spec, configs, switch) -> int:
+    """Prints a tuner report, holds it to its replay from the scores it
+    measured, and returns how many measured probes exceeded their
+    config's modeled ceiling."""
+    from repro_torch.core import autotune as tune
+    from repro_torch.core.roofline_empirical import config_ceiling_gbps
+
+    table = {c: g for r in rep.trajectory for c, g in zip(r.configs, r.gbps)}
+    ceilings = {c: config_ceiling_gbps(spec, c.placement,
+                                       tune._mix_engines(c.engines))
+                for c in configs}
+    ordered = tune._ordered_bracket(spec, configs, seed=0, budget=None)
+    rounds, measured, winner, best = tune._replay_search(
+        ordered, ceilings, lambda batch: [table[c] for c in batch], eta=2)
+    if (rounds, winner, best) != (rep.trajectory, rep.winner,
+                                  rep.winner_gbps):
+        fail(f"{label}: the report differs from its replay from the scores "
+             f"it measured")
+    if len(measured) != rep.evaluations or best != max(table.values()):
+        fail(f"{label}: the winner is not the argmax of the scores measured")
+    over = sum(g > ceilings[c] for c, g in table.items())
+    print(f"{label}: {rep.evaluations}/{rep.candidates} evaluations, winner "
+          f"{rep.winner.describe()} {rep.winner_gbps:.3f} GB/s on the card; "
+          f"trajectory " + "; ".join(
+              f"rung {r.rung}: {len(r.configs)} measured, best "
+              f"{r.best_gbps:.3f}, {r.pruned} pruned"
+              for r in rep.trajectory))
+    print(f"{label}: equals its replay from its own scores, winner = their "
+          f"argmax; {over} of {len(table)} measured probes exceed their "
+          f"config's modeled U280 ceiling (config_ceiling_gbps)"
+          f"{', a bound the pruning trusts' if over else ''}; "
+          f"nominal_fraction {rep.nominal_fraction:.3f} divides by the "
+          f"modeled U280 wire rate ({spec.peak_channel_gbps} GB/s an "
+          f"engine), not a rate of the card")
+    return over
+
+
+def campaign_path(smi, prices):
+    """Phase 7: the service, the tuner and the roofline report through
+    `cuda` (the card), its launches priced at `prices` (phase 6c's time
+    and bound of each kernel shape).  Returns the rst_contend_read
+    launches of the phase's requests and tunes."""
+    import collections
+
+    import torch
+
+    from repro_torch.core import (HBM, H100_SXM, AccessPattern,
+                                  MemoryOracle, RSTParams, Sweep,
+                                  get_experiment, tune_layout)
+    from repro_torch.core import autotune as tune
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.channels import topology_for
+    from repro_torch.core.switch import PLACEMENTS, SwitchModel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rst_contend import (rst_contend_mix_read,
+                                                 rst_contend_read)
+    from repro_torch.kernels.rst_read import rst_read
+    from repro_torch.kernels.rst_write import rst_write
+    from repro_torch.launch import roofline as report
+    from repro_torch.service import (CampaignService, ExperimentRequest,
+                                     Fault, FaultScript,
+                                     register_fault_injected)
+
+    phase("7. service, tuner and roofline report through cuda")
+    print(f"card: {smi}")
+
+    t_phase = time.perf_counter()
+    per_probe = 1 + ops.TIMED_RUNS * ops.CALLS_PER_RUN
+    switch = SwitchModel(topology_for(HBM))
+    counters = (rst_read, rst_write, rst_contend_read, rst_contend_mix_read)
+    tuned = ExperimentRequest.make("layout_autotune", "hbm", mixes=(1, 4),
+                                   **CAMPAIGN_TUNE, **TUNE_KNOBS)
+    roof = ExperimentRequest.make("roofline_empirical", "hbm",
+                                  **ROOFLINE_CARD)
+    latency = ExperimentRequest.make("table4_idle_latency", "hbm")
+    paper = ExperimentRequest.make("fig6_address_mapping", "hbm")
+    tuned_shapes = planned_probes(tuned, switch)
+    roof_shapes = planned_probes(roof, switch)
+    shapes = tuned_shapes + roof_shapes
+    want = sum(shapes.values()) * per_probe
+    print(f"planned: layout_autotune {sum(tuned_shapes.values())} probes, "
+          f"roofline_empirical {sum(roof_shapes.values())} probes, "
+          f"{per_probe} rst_contend_read launches a probe: {want} launches")
+
+    # (1) The service: a cuda primary, sim fallback, every response
+    # sampled for validation.
+    svc = CampaignService("cuda", "sim", validate_fraction=1.0, seed=0)
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = svc.submit_all([tuned, tuned, roof, roof, latency, paper])
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    launches = rst_contend_read.launches
+    print(f"service: {len(out)} requests in {served_s:.3f} s; "
+          f"rst_contend_read launched {launches} times (planned {want}); "
+          f"stats {svc.stats}")
+    for r in out:
+        what = (get_experiment(r.request.experiment).summary(HBM, r.result)
+                if r.ok else r.error)
+        print(f"  {r.request.experiment}: ok={r.ok} backend={r.backend!r} "
+              f"degraded={r.degraded} coalesced={r.coalesced} "
+              f"validated={r.validated} reason={r.degraded_reason!r}: "
+              f"{what}")
+    if launches != want:
+        fail(f"the service launched rst_contend_read {launches} times, not "
+             f"the {want} its plans make")
+    if any(k.launches for k in counters if k is not rst_contend_read):
+        fail("the service launched a kernel other than rst_contend_read")
+    for r in out[:4]:
+        if not (r.ok and r.backend == "cuda" and r.degraded is False):
+            fail(f"{r.request.experiment} was not served by cuda undegraded:"
+                 f" {r}")
+    if [r.coalesced for r in out[:4]] != [False, True, False, True]:
+        fail("the duplicate requests were not coalesced")
+    if (svc.stats.executed, svc.stats.dropped) != (4, 0):
+        fail(f"stats executed={svc.stats.executed} "
+             f"dropped={svc.stats.dropped}, want 4 and 0")
+    lat, bad = out[4], out[5]
+    if not (lat.ok and lat.backend == "sim" and lat.degraded is True
+            and LATENCY_GAP in (lat.degraded_reason or "")):
+        fail(f"table4_idle_latency did not degrade to sim with its reason: "
+             f"{lat}")
+    if bad.ok or bad.backend or BURST_TEXT not in (bad.error or ""):
+        fail(f"fig6_address_mapping was not a clean failure: {bad}")
+    check_shapes(shapes)
+    env = out[2].result
+
+    # (2) The tuner, directly, on a coalescing Sweep of its own.
+    p = RSTParams(**CAMPAIGN_TUNE)
+    knobs = dict(TUNE_KNOBS, placements=PLACEMENTS)
+    sweep = Sweep(HBM, "cuda", coalesce=True)
+    rst_contend_read.launches = 0
+    rep = tune_layout(p, HBM, "cuda", mixes=(1, 4), sweep=sweep, **knobs)
+    torch.cuda.synchronize()
+    direct = rst_contend_read.launches
+    configs = tune._canonical_configs(HBM, policies=None, mixes=(1, 4),
+                                      **knobs)
+    measured = [c for r in rep.trajectory for c in r.configs]
+    direct_shapes = config_probes(measured, p.s, switch)
+    want_direct = sum(direct_shapes.values()) * per_probe
+    print(f"direct tune_layout on cuda: rst_contend_read launched {direct} "
+          f"times ({want_direct} for its {len(measured)} probes)")
+    if direct != want_direct:
+        fail(f"the direct tune launched {direct} times, not {want_direct}")
+    over = report_tune("direct tune", rep, HBM, configs, switch)
+
+    # (3) A uniform read-only mix folds into the homogeneous key: the
+    # warm sweep serves every config the first tune measured.
+    rst_contend_read.launches = 0
+    rep4 = tune_layout(p, HBM, "cuda", mixes=("4r",), sweep=sweep, **knobs)
+    torch.cuda.synchronize()
+    folded = rst_contend_read.launches
+    seen = {(c.policy, c.arbitration, c.burst_beats, c.placement,
+             tune._mix_engines(c.engines)) for c in measured}
+    new = [c for r in rep4.trajectory for c in r.configs
+           if (c.policy, c.arbitration, c.burst_beats, c.placement, 4)
+           not in seen]
+    folded_shapes = config_probes(new, p.s, switch)
+    want_folded = sum(folded_shapes.values()) * per_probe
+    print(f"tune with mixes=('4r',) on the warm sweep: "
+          f"{rep4.evaluations}/{rep4.candidates} evaluations, "
+          f"{len(new)} configs the first tune did not measure, "
+          f"rst_contend_read launched {folded} times ({want_folded} for "
+          f"those); winner {rep4.winner.describe()} "
+          f"{rep4.winner_gbps:.3f} GB/s")
+    if folded != want_folded:
+        fail(f"the folded tune launched {folded} times, not {want_folded}")
+    configs4 = tune._canonical_configs(HBM, policies=None, mixes=("4r",),
+                                       **knobs)
+    over += report_tune("folded tune", rep4, HBM, configs4, switch)
+
+    # (4) A mix with a writer: refused by the read-only kernels, not
+    # degraded.
+    rst_contend_read.launches = 0
+    mixed = svc.submit(ExperimentRequest.make(
+        "layout_autotune", "hbm", mixes=("2r+1w",), **CAMPAIGN_TUNE,
+        **TUNE_KNOBS))
+    torch.cuda.synchronize()
+    refused = rst_contend_read.launches
+    print(f"layout_autotune mixes=('2r+1w',): ok={mixed.ok} "
+          f"degraded={mixed.degraded} error={mixed.error!r}; "
+          f"rst_contend_read launched {refused} times before the refusal "
+          f"(the reader ports of the first same_switch probe)")
+    if mixed.ok or mixed.degraded or READ_ONLY_TEXT not in (mixed.error
+                                                            or ""):
+        fail(f"the 2r+1w request was not refused as read-only: {mixed}")
+
+    # (5) A transient fault injected over cuda: the retried Sweep.run()
+    # resumes, so no probe is measured twice.
+    faulty = register_fault_injected(
+        "cuda", name="cuda+faults", override=True,
+        script=FaultScript().script(None, None, None, Fault("transient")))
+    try:
+        fsvc = CampaignService("cuda+faults", "sim", validate_fraction=1.0,
+                               seed=0)
+        rst_contend_read.launches = 0
+        fr = fsvc.submit(roof)
+        torch.cuda.synchronize()
+        resumed = rst_contend_read.launches
+    finally:
+        engine_mod._BACKEND_REGISTRY.pop("cuda+faults", None)
+    roof_probes = sum(roof_shapes.values())
+    print(f"roofline_empirical on cuda+faults: ok={fr.ok} "
+          f"backend={fr.backend!r} retries={fr.retries} "
+          f"degraded={fr.degraded}; {faulty.calls} backend calls for "
+          f"{roof_probes} probes, rst_contend_read launched {resumed} times "
+          f"({roof_probes * per_probe} with nothing measured twice)")
+    if not (fr.ok and fr.backend == "cuda+faults" and not fr.degraded
+            and fr.retries == 1 and faulty.injected["transient"] == 1):
+        fail(f"the transient over cuda was not retried to success: {fr}")
+    if faulty.calls != roof_probes + 1 or resumed != roof_probes * per_probe:
+        fail("the retried run measured a probe again instead of resuming")
+
+    # (6) The measured report of the card's envelope, and the oracle.
+    print("roofline report of the card's envelope (frac of nominal "
+          "divides by the modeled U280 wire rate, not a rate of the card):")
+    print(report.report_markdown(report.envelope_report_rows(env)))
+    oracle = MemoryOracle(chip=H100_SXM)
+    pattern = AccessPattern(4096, 4096, 256 << 20)
+    print(f"MemoryOracle(chip=H100_SXM), modeled (data-sheet peak x the U280"
+          f" model's derating, not a measurement): efficiency "
+          f"{oracle.efficiency(pattern):.4f}, effective bandwidth "
+          f"{oracle.effective_bandwidth(pattern) / 1e9:.1f} GB/s for 4 KiB "
+          f"sequential bursts over 256 MiB")
+    wall = time.perf_counter() - t_phase
+    total = launches + direct + folded + refused + resumed
+    # The refused mix measured reader ports of one engine each.
+    by_shape = collections.Counter({(p.s, 1): refused})
+    for counter in (shapes, direct_shapes, folded_shapes, roof_shapes):
+        for (stride, engines, _, _), probes in counter.items():
+            by_shape[(stride, engines)] += probes * per_probe
+    if sum(by_shape.values()) != total:
+        fail(f"phase 7's launches by shape add up to "
+             f"{sum(by_shape.values())}, not the {total} counted")
+    price_launches(by_shape, prices)
+    print(f"phase 7: {wall:.3f} s wall; service sustained_qps "
+          f"{svc.stats.sustained_qps:.3f} (host and card, {smi}); "
+          f"{over} probes above their modeled ceiling; rst_contend_read "
+          f"launched {total} times in the phase ({launches} service, "
+          f"{direct} direct tune, {folded} folded tune, {refused} refused "
+          f"mix, {resumed} fault-injected)")
+    return total
+
+
+def roofline_cli_refuses():
+    """`python -m repro_torch.launch.roofline --measured --backend cuda`
+    at its defaults probes 32-byte bursts: it must exit non-zero with the
+    burst text, with no fallback."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--measured",
+         "--backend", "cuda"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300, check=False)
+    if proc.returncode == 0 or BURST_TEXT not in proc.stderr:
+        fail(f"the roofline CLI on cuda at its defaults exited "
+             f"{proc.returncode} without the burst text:\n{proc.stderr}")
+    print(f"python -m repro_torch.launch.roofline --measured --backend cuda"
+          f" exited {proc.returncode}: "
+          f"{proc.stderr.strip().splitlines()[-1]}")
 
 
 def main() -> None:
@@ -1435,10 +1806,12 @@ def main() -> None:
     launches.update(contention_path())
     kernels = measure(launches, errors, smi, baseline)
     kernels += measure_contention(launches, errors, smi, baseline)
-    roofline_launches = grid_tier(smi)
+    roofline_launches, prices = grid_tier(smi)
+    campaign_launches = campaign_path(smi, prices)
+    roofline_cli_refuses()
     for k in kernels:
         if k["name"] == "rst_contend_read":
-            k["launches"] += roofline_launches
+            k["launches"] += roofline_launches + campaign_launches
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

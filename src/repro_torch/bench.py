@@ -17,6 +17,20 @@ time is never printed as a device number.
 10,368-point HBM cross-product through the batched `torchgrid` tier on
 the card, against the per-point NumPy model on a sample.
 
+The campaign surfaces are the reference CLI's, on `sim`:
+``--roofline`` (the measured-envelope rungs per spec), ``--tune`` (the
+`layout_autotune` rungs through the `CampaignService`), and the default
+suite's `oracle_autotune` row (the closed-form `MemoryOracle`, modeled).
+``--service`` runs the campaign-service soak (DESIGN.md §10): a
+duplicate-heavy batch served through `CampaignService` against a
+fault-injected `sim` primary at each ``--fault-rate`` (comma list,
+default ``0,0.01,0.1``) with `sim` fallback, asserting zero dropped
+requests, coalesced duplicates and, at the highest non-zero rate, a
+degraded response; ``--qps-target`` makes a floor of the sustained QPS
+(host wall clock).  ``--catalog [PATH]`` prints the registry-generated
+experiment catalog, or splices it between this package's catalog
+markers in PATH (README.md).
+
 ``--json PATH`` also writes the rows (plus totals) as JSON;
 ``--experiments name1,name2`` restricts the registry suite (unknown names
 fail with the registered list).  ``--engines N|MIX``, ``--arbitration
@@ -26,7 +40,9 @@ reference's CLI.
 
 Run: PYTHONPATH=src python -m repro_torch.bench [--quick] [--json PATH]
          [--experiments NAMES] [--engines N|MIX]
-         [--arbitration POLICY [--burst B]] [--grid]
+         [--arbitration POLICY [--burst B]] [--grid] [--roofline]
+         [--tune] [--service [--fault-rate RATES] [--qps-target QPS]]
+         [--catalog [PATH]]
 """
 from __future__ import annotations
 
@@ -308,6 +324,205 @@ def bench_grid(quick=False):
     return rows
 
 
+def bench_oracle_autotune():
+    """Framework integration: oracle efficiency + KV layout choice (the
+    closed-form MemoryOracle at its defaults: modeled, not measured)."""
+    from repro_torch.core import AccessPattern, MemoryOracle, choose_layout
+    oracle = MemoryOracle()
+
+    def run():
+        eff = oracle.efficiency(AccessPattern(4096, 4096, 1 << 28))
+        lay = choose_layout(oracle, {"seq": 32768, "kv_heads": 8,
+                                     "head_dim": 128}, 2,
+                            iterate_dim="seq",
+                            fetch_dims=("kv_heads", "head_dim"))
+        return eff, lay
+    (eff, lay), dt = _timed(run)
+    return [("oracle_autotune", dt,
+             f"seq_eff={eff:.3f};kv_layout={'/'.join(lay.dims)}")]
+
+
+def bench_roofline(quick):
+    """Measured-envelope rungs: the empirical roofline per spec, on sim."""
+    from repro_torch.core import spec_by_name
+    from repro_torch.core.roofline_empirical import measure_envelope
+
+    rows = []
+    for name in BENCH_SPEC_NAMES:
+        spec = spec_by_name(name)
+        env, dt = _timed(lambda: measure_envelope(spec, quick=quick))
+        tiers = ";".join(
+            f"{''.join(w[0] for w in plc.split('_'))}"
+            f"={env.placement_gbps[plc]:.2f}"
+            for plc in ("same_channel", "same_switch", "cross_switch"))
+        rows.append((f"roofline_envelope_{name}", dt,
+                     f"peak_gbps={env.peak_gbps:.2f};"
+                     f"knee_ai={env.knee_ai():.0f};{tiers}"))
+    return rows
+
+
+def bench_tune(quick):
+    """Layout-autotune rungs, routed through the CampaignService so the
+    rung exercises the dedup/coalescing path the tuner ships with.
+
+    Asserts the service invariants on every run: responses ok, reports
+    carry a measured winner, duplicate requests coalesce, and the search
+    measured no more configs than its candidate space."""
+    from repro_torch.service import CampaignService, ExperimentRequest
+
+    svc = CampaignService("sim", "sim")
+    rows = []
+    for name in BENCH_SPEC_NAMES:
+        req = ExperimentRequest.make("layout_autotune", name, quick=quick)
+        resp, dt = _timed(lambda: svc.submit(req))
+        assert resp.ok, f"layout_autotune[{name}] failed: {resp.error}"
+        rep = resp.result
+        assert rep.evaluations <= rep.candidates
+        rows.append((f"layout_autotune_{name}", dt,
+                     f"winner={rep.winner.describe()};"
+                     f"gbps={rep.winner_gbps:.2f};"
+                     f"evals={rep.evaluations}/{rep.candidates};"
+                     f"nominal={rep.nominal_fraction:.2f}"))
+        dup, dup_dt = _timed(lambda: svc.submit(req))
+        assert dup.coalesced and dup.result == rep
+        rows.append((f"layout_autotune_{name}_dedup", dup_dt,
+                     "coalesced=True"))
+    return rows
+
+
+def parse_fault_rates(text):
+    """Parse the --fault-rate comma list; exits cleanly on bad values."""
+    rates = []
+    for part in text.split(","):
+        part = part.strip()
+        try:
+            rate = float(part)
+        except ValueError:
+            raise SystemExit(
+                f"repro_torch.bench: --fault-rate: {part!r} is not a "
+                f"number (expected a comma list like '0,0.01,0.1')")
+        if not 0.0 <= rate <= 1.0:
+            raise SystemExit(
+                f"repro_torch.bench: --fault-rate must be in [0, 1], got "
+                f"{rate}")
+        rates.append(rate)
+    if not rates:
+        raise SystemExit("repro_torch.bench: --fault-rate: empty rate list")
+    return tuple(rates)
+
+
+def _service_request_mix(quick, n_requests):
+    """A duplicate-heavy mixed batch over the hbm/ddr4 registry: ~16
+    distinct request keys cycled (deterministically shuffled) out to
+    `n_requests`, so coalescing has something to prove."""
+    import numpy as np
+
+    from repro_torch.service import ExperimentRequest
+
+    templates = []
+    for spec in BENCH_SPEC_NAMES:
+        templates += [
+            ExperimentRequest.make("fig6_address_mapping", spec, quick=True),
+            ExperimentRequest.make("table4_idle_latency", spec, n=512),
+            ExperimentRequest.make("fig4_refresh", spec, quick=True),
+            ExperimentRequest.make("fig7_locality", spec, quick=True),
+            ExperimentRequest.make("fig9_channel_contention", spec,
+                                   quick=True),
+            ExperimentRequest.make("table5_total_throughput", spec, n=2048),
+            ExperimentRequest.make("duplex_rw_sweep", spec, quick=True),
+            ExperimentRequest.make("contention_scaling_sweep", spec,
+                                   quick=True),
+            ExperimentRequest.make("engine_mix_sweep", spec, quick=True),
+        ]
+    reqs = [templates[i % len(templates)] for i in range(n_requests)]
+    order = np.random.default_rng(0).permutation(len(reqs))
+    return [reqs[i] for i in order]
+
+
+def bench_service(quick=False, fault_rates=(0.0, 0.01, 0.1),
+                  qps_target=None):
+    """Campaign-service soak: one row per fault rate (DESIGN.md §10).
+
+    Serves the mixed batch through `CampaignService` with a
+    fault-injected sim primary (transient/timeout/corrupt mix) and a
+    clean sim fallback, full oracle validation, then asserts the service
+    invariants before reporting: zero dropped requests at every rate,
+    duplicates coalesced (executed < requests), every response either
+    oracle-validated or degraded-with-reason, and >= 1 exercised
+    fallback at the highest non-zero rate.  `qps` is host wall clock.
+    """
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.service import (CampaignService, RetryPolicy,
+                                     register_fault_injected)
+
+    n_requests = 200 if quick else 1000
+    requests = _service_request_mix(quick, n_requests)
+    max_rate = max(fault_rates)
+    rows = []
+    for rate in fault_rates:
+        primary = f"sim+faults@{rate:g}"
+        register_fault_injected(
+            "sim", name=primary, rate=rate, seed=7,
+            kinds=("transient", "timeout", "corrupt", "unsupported"),
+            weights=(0.5, 0.2, 0.15, 0.15), timeout_s=0.2, override=True)
+        try:
+            svc = CampaignService(
+                primary, "sim", retry=RetryPolicy(max_attempts=8),
+                validate_fraction=1.0, seed=11)
+            responses, dt = _timed(lambda: svc.submit_all(requests))
+            st = svc.stats
+            assert st.dropped == 0, (
+                f"service dropped {st.dropped} requests at rate {rate}")
+            assert all(r.ok for r in responses), (
+                f"non-ok responses at rate {rate}: "
+                f"{[r.error for r in responses if not r.ok][:3]}")
+            assert st.executed < st.requests and st.deduped > 0, (
+                f"no coalescing at rate {rate}: {st}")
+            assert all(r.validated is True or r.validated is None
+                       or (r.degraded and r.degraded_reason)
+                       for r in responses), (
+                f"unvalidated, undegraded response at rate {rate}")
+            if rate == max_rate and rate > 0:
+                assert st.degraded >= 1, (
+                    f"no fallback exercised at rate {rate}: {st}")
+            if qps_target is not None:
+                assert st.sustained_qps >= qps_target, (
+                    f"sustained QPS {st.sustained_qps:.0f} below target "
+                    f"{qps_target:.0f} at rate {rate}")
+            rows.append((
+                f"service_soak_fault{rate:g}", dt,
+                f"requests={st.requests};executed={st.executed};"
+                f"deduped={st.deduped};retries={st.retries};"
+                f"degraded={st.degraded};breaker_opens={st.breaker_opens};"
+                f"quarantines={st.quarantines};validated={st.validated};"
+                f"dropped={st.dropped};qps={st.sustained_qps:.0f}"))
+        finally:
+            engine_mod._BACKEND_REGISTRY.pop(primary, None)
+    return rows
+
+
+def emit_catalog(target: str) -> None:
+    """Print the registry-generated experiment catalog ("-") or splice it
+    between this package's catalog markers of a markdown file (e.g.
+    README.md)."""
+    from repro_torch.core.experiments import (CATALOG_BEGIN, CATALOG_END,
+                                              catalog_markdown)
+    md = catalog_markdown()
+    if target == "-":
+        print(md)
+        return
+    with open(target) as f:
+        text = f.read()
+    lo, hi = text.find(CATALOG_BEGIN), text.find(CATALOG_END)
+    if lo < 0 or hi < 0:
+        raise SystemExit(
+            f"--catalog: {target} has no '{CATALOG_BEGIN}' .. "
+            f"'{CATALOG_END}' markers to splice between")
+    with open(target, "w") as f:
+        f.write(text[:lo] + md + text[hi + len(CATALOG_END):])
+    print(f"updated experiment catalog in {target}")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.bench")
     ap.add_argument("--quick", action="store_true")
@@ -335,7 +550,41 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="run only the grid-evaluation ladder on the card "
                          "(per-point NumPy, torchgrid cold and warm, "
                          "sharded, mixed lanes)")
+    ap.add_argument("--catalog", metavar="PATH", nargs="?", const="-",
+                    default=None,
+                    help="emit the registry-generated experiment catalog "
+                         "and exit: to stdout, or spliced between this "
+                         "package's catalog markers of PATH (README.md)")
+    ap.add_argument("--service", action="store_true",
+                    help="run the campaign-service fault-injection soak "
+                         "instead of the registry benches (DESIGN.md §10)")
+    ap.add_argument("--roofline", action="store_true",
+                    help="run the measured-envelope rungs "
+                         "(core/roofline_empirical.py, on sim) instead of "
+                         "the registry benches")
+    ap.add_argument("--tune", action="store_true",
+                    help="run the layout-autotune rungs through the "
+                         "campaign service (on sim) instead of the "
+                         "registry benches")
+    ap.add_argument("--fault-rate", metavar="RATES", default=None,
+                    help="comma list of injected fault rates in [0, 1] for "
+                         "--service (default: 0,0.01,0.1)")
+    ap.add_argument("--qps-target", type=float, metavar="QPS", default=None,
+                    help="with --service: fail if sustained QPS falls "
+                         "below this at any fault rate")
     args = ap.parse_args(argv)
+    if not args.service:
+        if args.fault_rate is not None:
+            ap.error("--fault-rate only applies with --service")
+        if args.qps_target is not None:
+            ap.error("--qps-target only applies with --service")
+    if sum((args.service, args.grid, args.roofline, args.tune)) > 1:
+        ap.error("--service, --grid, --roofline and --tune are separate "
+                 "modes")
+    fault_rates = (parse_fault_rates(args.fault_rate)
+                   if args.fault_rate is not None else (0.0, 0.01, 0.1))
+    if args.qps_target is not None and args.qps_target <= 0:
+        ap.error(f"--qps-target must be > 0, got {args.qps_target:g}")
     if args.engines is not None:
         args.engines = parse_engines_arg(args.engines)
     if args.burst is not None and args.burst < 1:
@@ -343,6 +592,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.burst is not None and args.arbitration != "burst":
         ap.error("--burst only applies with --arbitration burst "
                  "(round_robin and exclusive fix the grant size)")
+    if args.catalog is not None:
+        emit_catalog(args.catalog)
+        return
     q = args.quick
     if args.json:
         json_dir = os.path.dirname(os.path.abspath(args.json))
@@ -352,12 +604,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     print("name,us_per_call,derived")
     if args.grid:
         suites = [lambda: bench_grid(q)]
+    elif args.service:
+        suites = [lambda: bench_service(q, fault_rates, args.qps_target)]
+    elif args.roofline:
+        suites = [lambda: bench_roofline(q)]
+    elif args.tune:
+        suites = [lambda: bench_tune(q)]
     else:
         suites = [
             lambda: bench_experiments(q, args.experiments, args.engines,
                                       args.arbitration, args.burst),
             bench_table3_resources,
             lambda: bench_h100_rst_kernel(q),
+            bench_oracle_autotune,
         ]
     rows: List[dict] = []
     failures = 0
@@ -375,6 +634,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     if args.json:
         payload = {"benchmark": ("shuhai-grid-torch" if args.grid
+                                 else "shuhai-campaign-service-torch"
+                                 if args.service
+                                 else "shuhai-roofline-torch"
+                                 if args.roofline
+                                 else "shuhai-tune-torch" if args.tune
                                  else "shuhai-campaign-torch"), "quick": q,
                    "unix_time": time.time(), "wall_us": round(wall_us, 1),
                    "suite_us_total":

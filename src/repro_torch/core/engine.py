@@ -313,6 +313,9 @@ class Backend:
     deterministic: bool = False
     supports_latency: bool = False
     supports_contention: bool = False
+    # A wrapper that injects faults into another backend (service/
+    # faults.py): a test and soak tool, not a substrate of its own.
+    injects_faults: bool = False
 
     def throughput(self, spec: MemorySpec, p: RSTParams,
                    mapping: AddressMapping, *,

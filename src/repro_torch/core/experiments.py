@@ -14,6 +14,9 @@ Beyond the paper's read-only artifacts, a write-path family (Sec. IV as
 first-class workloads: ``table5_write_throughput``, ``fig7_write_locality``,
 ``duplex_rw_sweep``) exercises the write and duplex directions of the
 timing model / CUDA kernels on every registered memory system.
+:func:`catalog_markdown` renders the whole registry as the README's
+"Experiment catalog" table of this package
+(``python -m repro_torch.bench --catalog``).
 
 The entry points are thin views over this registry:
 `ShuhaiCampaign.suite_*` (deprecated shims) and `repro_torch.bench`
@@ -1208,3 +1211,64 @@ register_experiment(Experiment(
         ("_".join(str(f) for f in k), f"{v:.2f}")
         for k, v in r["gbps"].items()],
 ))
+
+
+# ---------------------------------------------------------------------------
+# Experiment catalog (README.md section;
+# `python -m repro_torch.bench --catalog`).  Its markers differ from the
+# JAX package's, so both generated tables live in one README.
+# ---------------------------------------------------------------------------
+
+CATALOG_BEGIN = "<!-- torch-experiment-catalog:begin -->"
+CATALOG_END = "<!-- torch-experiment-catalog:end -->"
+
+
+def _catalog_backends(planned: List[PlannedPoint]) -> str:
+    """Backends that can execute a plan: serial-latency points need
+    per-transaction timers (sim only, DESIGN.md §2); contention points
+    need a multi-engine path (supports_contention, DESIGN.md §8).
+    Fault-injecting wrappers (tests and soaks register them) are not
+    substrates and are left out."""
+    from repro_torch.core.engine import available_backends
+    needs_latency = any(pt.kind == KIND_LATENCY for _, pt in planned)
+    needs_contention = any(pt.kind == KIND_CONTENTION for _, pt in planned)
+    names = [name for name in available_backends()
+             if not get_backend(name).injects_faults
+             and (not needs_latency or get_backend(name).supports_latency)
+             and (not needs_contention
+                  or get_backend(name).supports_contention)]
+    return ", ".join(names)
+
+
+def catalog_rows() -> List[Tuple[str, ...]]:
+    """One row per registered experiment, derived live from the registry."""
+    from repro_torch.core.hwspec import available_specs, spec_by_name
+    specs = [spec_by_name(n) for n in available_specs()]
+    rows = []
+    for exp in all_experiments():
+        spec = next(s for s in specs if exp.available_on(s))
+        planned = exp.plan(spec, exp.options())
+        systems = ("switched specs" if exp.requires_switch
+                   else "all registered specs")
+        rows.append((exp.name, exp.artifact,
+                     f"{len(planned)} ({spec.name})",
+                     _catalog_backends(planned), systems))
+    return rows
+
+
+def catalog_markdown() -> str:
+    """The README's "Experiment catalog" table of this package, generated
+    from the registry (``python -m repro_torch.bench --catalog``) so it
+    can never drift."""
+    lines = [
+        CATALOG_BEGIN,
+        "<!-- generated by `python -m repro_torch.bench --catalog "
+        "README.md`; do not edit by hand -->",
+        "| experiment | paper artifact | grid points | backends | systems |",
+        "|---|---|---|---|---|",
+    ]
+    for name, artifact, grid, backends, systems in catalog_rows():
+        lines.append(
+            f"| `{name}` | {artifact} | {grid} | {backends} | {systems} |")
+    lines.append(CATALOG_END)
+    return "\n".join(lines)

@@ -122,10 +122,12 @@ def config_ceiling_gbps(spec: MemorySpec, placement: str,
     gives `num_engines` engines by the per-channel wire rate, then clamps
     by the mini-switch / lateral-bridge capacity term for the *effective*
     placement (cross_switch degrades to same_switch on switchless
-    fabrics).  No measured number can exceed it — per-port throughput is
-    wire-rate-limited and the switch caps are modeled as hard ceilings —
-    which is what lets the autotuner prune on it without risking the
-    exhaustive-grid argmax.
+    fabrics).  No number of the models can exceed it — per-port
+    throughput is wire-rate-limited and the switch caps are modeled as
+    hard ceilings — which is what lets the autotuner prune on it without
+    risking the exhaustive-grid argmax.  A probe measured on the card
+    (`cuda`) is not wire-rate-limited and can exceed it: the bound is the
+    modeled fabric's, not the card's.
     """
     switch = SwitchModel(topology_for(spec))
     effective, counts = placement_port_counts(switch, placement, num_engines)

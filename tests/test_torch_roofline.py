@@ -197,3 +197,61 @@ def test_cuda_backend_needs_the_card_shapes(cpu_backends):
     for pt in env.points:
         if pt.placement != "same_channel":
             assert pt.gbps <= sw.capacity_cap_gbps(pt.placement) + 1e-9
+
+
+# ------------------------------------------ launch/roofline: the report
+
+
+def test_report_rows_equal_reference():
+    """The measured report's rows and markdown for the same sim envelope
+    (the reference's default chip, so the knees are comparable)."""
+    from repro.launch import roofline as ref_report
+    from repro_torch.launch import roofline as report
+    assert report.REPORT_FIELDS == ref_report.REPORT_FIELDS
+    assert report.DEFAULT_CHIP == "h100_sxm"
+    for spec_name in ALL_SPECS:
+        got = rf.measure_envelope(port_core.spec_by_name(spec_name),
+                                  quick=True)
+        want = ref_rf.measure_envelope(ref_core.spec_by_name(spec_name),
+                                       quick=True)
+        rows = report.envelope_report_rows(got)
+        assert_same(rows, ref_report.envelope_report_rows(want))
+        assert [tuple(r) for r in rows] == [report.REPORT_FIELDS] * len(rows)
+        assert report.report_markdown(rows) == ref_report.report_markdown(
+            ref_report.envelope_report_rows(want))
+
+
+def test_report_cli_on_sim_matches_reference(tmp_path, capsys, monkeypatch):
+    import json
+    import sys
+
+    from repro.launch import roofline as ref_report
+    from repro_torch.launch import roofline as report
+    out, js = tmp_path / "r.md", tmp_path / "r.json"
+    report.main(["--measured", "--quick", "--chip", "tpu_v5e", "--out",
+                 str(out), "--json-out", str(js)])
+    got = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["roofline", "--measured", "--quick"])
+    ref_report.main()
+    assert got == capsys.readouterr().out
+    assert out.read_text() == got
+    assert len(json.loads(js.read_text())) == 4
+    # The default chip is the card's: same bandwidths, its own knees.
+    report.main(["--measured", "--quick"])
+    h100 = capsys.readouterr().out
+    assert h100 != got and h100.count("| measured |") == 4
+
+
+def test_report_cli_refuses_what_it_cannot_do(cpu_backends, capsys):
+    """At its defaults the measured report probes 32-byte bursts, which
+    no CUDA kernel tile matches: `--backend cuda` raises the burst text,
+    with no fallback.  Without --measured (the analytic mode of the JAX
+    package) it exits with a usage error."""
+    from repro_torch.launch import roofline as report
+    with pytest.raises(ValueError,
+                       match="burst B=32 does not match tile bytes 4096"):
+        report.main(["--measured", "--backend", "cuda"])
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit):
+        report.main([])
+    assert "pass --measured" in capsys.readouterr().err

@@ -37,7 +37,7 @@ PORTED = ["fig4_refresh", "table4_idle_latency", "fig6_address_mapping",
           "fig9_channel_contention", "contention_scaling_sweep",
           "arbitration_granularity_sweep", "fig9_cross_switch_contention",
           "contended_latency_classes", "engine_mix_sweep",
-          "grid_cross_product", "roofline_empirical"]
+          "grid_cross_product", "roofline_empirical", "layout_autotune"]
 
 
 def test_registry_holds_the_ported_experiments():
@@ -205,7 +205,12 @@ def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
     assert {"repro_torch.kernels.rst_read", "repro_torch.core.timing_torch",
             "repro_torch.core.roofline_empirical",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.core._timing_reference",
+            "repro_torch.core.oracle", "repro_torch.core.autotune",
+            "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.service", "repro_torch.service.campaign",
+            "repro_torch.service.faults", "repro_torch.service.retry",
+            "repro_torch.launch.roofline"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
