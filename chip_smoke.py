@@ -60,8 +60,17 @@ Phases, each fatal on failure:
      sweep; a mix with a writer refused; a transient fault injected over
      cuda, whose retry resumes; the measured report of the card's
      envelope; and `python -m repro_torch.launch.roofline --measured
-     --backend cuda`, which must fail with the burst text; then one JSON
-     line of kernels, the nvidia-smi line, and the final JSON line.
+     --backend cuda`, which must fail with the burst text;
+  8. static analysis, lint report and examples, on the card's host: the
+     port's repro-lint against analysis_baseline_torch.json (exit 0, no
+     finding), `python -m repro_torch.bench --lint-report` (lint_total
+     clean, each family's time), K001's parse of the extern "C" entry
+     points against the library phase 2 built (each one exported, each
+     exported *_launch entry typed in _SIGNATURES), and the two examples
+     that need no LM: autotune_layout (its three tables) and
+     shuhai_campaign on cuda (each experiment gives rows or is refused
+     with the burst or capability text); then one JSON line of kernels,
+     the nvidia-smi line, and the final JSON line.
 
 It imports torch and the port (repro_torch) only.
 """
@@ -71,6 +80,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -831,8 +841,6 @@ def in_turns(fns, rounds: int = 4, iters: int = 20):
 def kernel_split(fn, calls: int = 10):
     """{kernel name: device ms per call} of the kernels `fn` launches, from
     torch.profiler's key_averages(); empty if it reports no device time."""
-    import re
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1791,6 +1799,137 @@ def roofline_cli_refuses():
           f"{proc.stderr.strip().splitlines()[-1]}")
 
 
+# Phase 8: the port's static analysis and the examples, each in a
+# subprocess as a user runs it.  An experiment the card's kernels cannot
+# run is refused for its burst (the paper's 32/64-byte bursts against the
+# 4 KiB tile) or for a capability the cuda backend lacks.
+BURST_REFUSAL = re.compile(r"burst B=\d+ does not match tile bytes 4096")
+CAPABILITY_REFUSALS = ("(supports_latency=False)",
+                       "(supports_contention=False)", READ_ONLY_TEXT)
+AUTOTUNE_TABLES = ("KV cache (decode sweeps seq):",
+                   "Saved activations (backward sweeps layers):",
+                   "Expert weights (dispatch sweeps experts):")
+
+
+def run_module(args, timeout: int = 300):
+    """`python -m <args>` from the checkout's root; returns the finished
+    process and its wall seconds (interpreter start included)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout,
+                          check=False)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+             f"{proc.stdout}{proc.stderr}")
+    return proc, wall
+
+
+def exported_symbols(path: str):
+    """Global functions the shared library at `path` exports (nm -D)."""
+    try:
+        out = subprocess.run(["nm", "-D", "--defined-only", path],
+                             capture_output=True, text=True,
+                             check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        fail(f"nm cannot list the exports of {path}: {e}")
+    return {parts[2] for parts in map(str.split, out.splitlines())
+            if len(parts) == 3 and parts[1] in ("T", "W")}
+
+
+def static_analysis():
+    """Phase 8: the lint, its bench report, K001's parse against the
+    built library, and the two examples that need no LM."""
+    from pathlib import Path
+
+    from repro_torch.analysis import kernel_shapes
+    from repro_torch.analysis.lint import BASELINE
+    from repro_torch.core import HBM
+    from repro_torch.core.experiments import experiments_for
+    from repro_torch.kernels import _build
+
+    phase("8. static analysis, lint report and examples")
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "lint")
+    os.makedirs(out_dir, exist_ok=True)
+
+    findings_path = os.path.join(out_dir, "findings.json")
+    proc, wall = run_module(["repro_torch.analysis.lint", "--baseline",
+                             BASELINE, "--json", findings_path])
+    with open(findings_path) as f:
+        findings = json.load(f)["findings"]
+    if findings:
+        fail(f"repro-lint reports {len(findings)} findings:\n{proc.stdout}")
+    print(f"python -m repro_torch.analysis.lint: exit 0, 0 findings, "
+          f"{wall:.3f} s wall; {proc.stdout.strip().splitlines()[-1]}")
+
+    report_path = os.path.join(out_dir, "BENCH_lint.json")
+    _, wall = run_module(["repro_torch.bench", "--lint-report", "--json",
+                          report_path])
+    with open(report_path) as f:
+        rows = {r["name"]: r for r in json.load(f)["rows"]}
+    if "clean=True" not in rows.get("lint_total", {}).get("derived", ""):
+        fail(f"bench --lint-report is not clean: {rows}")
+    for name, row in rows.items():
+        print(f"{name}: {row['us_per_call']:.1f} us; {row['derived']}")
+    print(f"python -m repro_torch.bench --lint-report: {wall:.3f} s wall")
+
+    parsed = kernel_shapes.extern_c_functions(
+        sorted(Path(_build.CSRC).glob("*.cu")))
+    lib = _build.library()
+    exported = exported_symbols(str(_build.library_path()))
+    absent = [f.name for f in parsed
+              if f.name not in exported or not hasattr(lib, f.name)]
+    if absent:
+        fail(f"extern \"C\" functions the lint parsed but the library does "
+             f"not export: {absent}")
+    entries = sorted(n for n in exported if n.endswith("_launch"))
+    untyped = [n for n in entries if n not in _build._SIGNATURES]
+    if untyped or not entries:
+        fail(f"exported launch entries without a _SIGNATURES row: "
+             f"{untyped or 'none exported'}")
+    print(f"{len(parsed)} extern \"C\" functions parsed "
+          f"({', '.join(f.name for f in parsed)}) are exported by "
+          f"{os.path.relpath(_build.library_path(), ROOT)}; its "
+          f"{len(entries)} launch entries all have a _SIGNATURES row")
+
+    proc, wall = run_module(["repro_torch.examples.autotune_layout"])
+    missing = [t for t in AUTOTUNE_TABLES if t not in proc.stdout]
+    if missing:
+        fail(f"autotune_layout printed no table {missing}:\n{proc.stdout}")
+    print(f"python -m repro_torch.examples.autotune_layout: "
+          f"{len(AUTOTUNE_TABLES)} tables, {wall:.3f} s wall")
+
+    proc, wall = run_module(["repro_torch.examples.shuhai_campaign",
+                             "--specs", "hbm", "--backend", "cuda"], 600)
+    with_rows = {line.split(",")[1] for line in
+                 proc.stdout.strip().splitlines()[1:]}
+    refusals = {}
+    for line in proc.stderr.splitlines():
+        match = re.match(r"skipping (\S+) on hbm/cuda: (.*)$", line)
+        if match:
+            refusals[match.group(1)] = match.group(2)
+    counts = {"rows": 0, "burst": 0, "capability": 0}
+    for exp in experiments_for(HBM):
+        why = refusals.get(exp.name, "")
+        if exp.name in with_rows:
+            counts["rows"] += 1
+        elif BURST_REFUSAL.search(why):
+            counts["burst"] += 1
+        elif any(text in why for text in CAPABILITY_REFUSALS):
+            counts["capability"] += 1
+        else:
+            fail(f"shuhai_campaign on cuda neither measured nor refused "
+                 f"{exp.name} with the burst or capability text: {why!r}")
+    print(f"python -m repro_torch.examples.shuhai_campaign --specs hbm "
+          f"--backend cuda: {sum(counts.values())} experiments, "
+          f"{counts['rows']} with rows, {counts['burst']} refused for the "
+          f"burst, {counts['capability']} for a capability; {wall:.3f} s "
+          f"wall")
+    print(f"phase 8: {time.perf_counter() - t_phase:.3f} s wall")
+
+
 def main() -> None:
     name, count, smi = environment()
     sys.path.insert(0, SRC)
@@ -1809,6 +1948,7 @@ def main() -> None:
     roofline_launches, prices = grid_tier(smi)
     campaign_launches = campaign_path(smi, prices)
     roofline_cli_refuses()
+    static_analysis()
     for k in kernels:
         if k["name"] == "rst_contend_read":
             k["launches"] += roofline_launches + campaign_launches

@@ -6,8 +6,10 @@ Every paper table/figure is a registered `Experiment`
 `sim` backend per applicable memory spec and prints
 ``name,us_per_call,derived`` CSV rows.  `us_per_call` is host wall time of
 the run; `derived` carries the headline quantity the paper reports for
-that artifact (each experiment's `summarize`).  The device rungs below are
-not paper artifacts: `bench_table3_resources` reports the engine's
+that artifact (each experiment's `summarize`).  `bench_sweep_grid` times
+one policy x stride x channel `Sweep` on HBM (memoization and channel
+broadcast).  The device rungs below are not paper artifacts:
+`bench_table3_resources` reports the engine's
 on-chip footprint per tile, and `bench_h100_rst_kernel` measures RST read,
 write and duplex streams with the CUDA kernels on the card, naming the
 card beside each number.  With no CUDA card the device rung fails: a host
@@ -29,7 +31,9 @@ requests, coalesced duplicates and, at the highest non-zero rate, a
 degraded response; ``--qps-target`` makes a floor of the sustained QPS
 (host wall clock).  ``--catalog [PATH]`` prints the registry-generated
 experiment catalog, or splices it between this package's catalog
-markers in PATH (README.md).
+markers in PATH (README.md).  ``--lint-report`` runs only the port's
+repro-lint families (`repro_torch.analysis.lint`), one timed row each,
+and a `lint_total` row against ``analysis_baseline_torch.json``.
 
 ``--json PATH`` also writes the rows (plus totals) as JSON;
 ``--experiments name1,name2`` restricts the registry suite (unknown names
@@ -42,7 +46,7 @@ Run: PYTHONPATH=src python -m repro_torch.bench [--quick] [--json PATH]
          [--experiments NAMES] [--engines N|MIX]
          [--arbitration POLICY [--burst B]] [--grid] [--roofline]
          [--tune] [--service [--fault-rate RATES] [--qps-target QPS]]
-         [--catalog [PATH]]
+         [--lint-report] [--catalog [PATH]]
 """
 from __future__ import annotations
 
@@ -160,6 +164,30 @@ def bench_experiments(quick=False, experiments=None, engines=None,
             name = label if len(available) == 1 else f"{label}_{spec.name}"
             rows.append((name, dt, exp.summary(spec, res)))
     return rows
+
+
+def bench_sweep_grid(quick=False):
+    """Sweep planner: one batched (policy x stride x channel) campaign grid,
+    exercising memoization + channel broadcast (core/sweep.py)."""
+    from repro_torch.core import HBM, RSTParams, Sweep
+
+    strides = (64, 1024) if quick else (64, 256, 1024, 4096)
+    channels = range(0, 32, 4)
+    n = 1024 if quick else 4096
+
+    def run():
+        sweep = Sweep(HBM)
+        sweep.add_grid(
+            [RSTParams(n=n, b=64, s=s, w=0x10000000) for s in strides],
+            policies=("RGBCG", "RBC", "BRC"), channels=tuple(channels))
+        results = sweep.run()
+        return sweep.stats, results
+
+    (stats, results), dt = _timed(run)
+    gbps = [r.value.gbps for r in results]
+    return [("sweep_grid_hbm", dt,
+             f"points={stats.points};evaluated={stats.evaluated};"
+             f"cache_hits={stats.cache_hits};max_gbps={max(gbps):.2f}")]
 
 
 def bench_table3_resources():
@@ -390,6 +418,41 @@ def bench_tune(quick):
     return rows
 
 
+def bench_lint_report():
+    """Timed run of the port's repro-lint families.
+
+    One row per invariant family (`lint_<family>`, analyzer runtime and
+    finding count) plus a `lint_total` row carrying the new/stale split
+    against the committed `analysis_baseline_torch.json`; raises unless
+    the tree is clean against it.
+    """
+    from repro_torch.analysis import lint as lint_mod
+    from repro_torch.analysis.findings import diff_baseline, load_baseline
+
+    root = lint_mod.default_root()
+    rows = []
+    findings = []
+    total_us = 0.0
+    for family, runner in lint_mod.FAMILIES:
+        family_findings, dt = _timed(lambda runner=runner: runner(root))
+        findings.extend(family_findings)
+        total_us += dt
+        rows.append((f"lint_{family}", dt,
+                     f"findings={len(family_findings)}"))
+    baseline = load_baseline(root / lint_mod.BASELINE)
+    diff = diff_baseline(findings, baseline)
+    rows.append(("lint_total", total_us,
+                 f"findings={len(findings)};baseline={len(baseline)};"
+                 f"new={len(diff.new)};stale={len(diff.stale)};"
+                 f"clean={diff.clean}"))
+    if not diff.clean:
+        raise RuntimeError(
+            f"repro-lint not clean vs {lint_mod.BASELINE}: "
+            f"{len(diff.new)} new, {len(diff.stale)} stale — run `python "
+            f"-m repro_torch.analysis.lint --baseline {lint_mod.BASELINE}`")
+    return rows
+
+
 def parse_fault_rates(text):
     """Parse the --fault-rate comma list; exits cleanly on bad values."""
     rates = []
@@ -555,6 +618,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="emit the registry-generated experiment catalog "
                          "and exit: to stdout, or spliced between this "
                          "package's catalog markers of PATH (README.md)")
+    ap.add_argument("--lint-report", action="store_true",
+                    help="run only the port's repro-lint families, one "
+                         "timed row each and a lint_total row against "
+                         "analysis_baseline_torch.json; --json defaults "
+                         "to BENCH_lint.json")
     ap.add_argument("--service", action="store_true",
                     help="run the campaign-service fault-injection soak "
                          "instead of the registry benches (DESIGN.md §10)")
@@ -578,9 +646,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             ap.error("--fault-rate only applies with --service")
         if args.qps_target is not None:
             ap.error("--qps-target only applies with --service")
-    if sum((args.service, args.grid, args.roofline, args.tune)) > 1:
-        ap.error("--service, --grid, --roofline and --tune are separate "
-                 "modes")
+    if sum((args.lint_report, args.service, args.grid, args.roofline,
+            args.tune)) > 1:
+        ap.error("--lint-report, --service, --grid, --roofline and --tune "
+                 "are separate modes")
+    if args.lint_report and args.json is None:
+        args.json = "BENCH_lint.json"
     fault_rates = (parse_fault_rates(args.fault_rate)
                    if args.fault_rate is not None else (0.0, 0.01, 0.1))
     if args.qps_target is not None and args.qps_target <= 0:
@@ -602,7 +673,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             ap.error(f"--json: {args.json!r} is not a writable file path")
 
     print("name,us_per_call,derived")
-    if args.grid:
+    if args.lint_report:
+        suites = [bench_lint_report]
+    elif args.grid:
         suites = [lambda: bench_grid(q)]
     elif args.service:
         suites = [lambda: bench_service(q, fault_rates, args.qps_target)]
@@ -614,6 +687,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         suites = [
             lambda: bench_experiments(q, args.experiments, args.engines,
                                       args.arbitration, args.burst),
+            lambda: bench_sweep_grid(q),
             bench_table3_resources,
             lambda: bench_h100_rst_kernel(q),
             bench_oracle_autotune,
@@ -633,7 +707,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     wall_us = (time.perf_counter() - t0) * 1e6
 
     if args.json:
-        payload = {"benchmark": ("shuhai-grid-torch" if args.grid
+        payload = {"benchmark": ("shuhai-lint-torch" if args.lint_report
+                                 else "shuhai-grid-torch" if args.grid
                                  else "shuhai-campaign-service-torch"
                                  if args.service
                                  else "shuhai-roofline-torch"

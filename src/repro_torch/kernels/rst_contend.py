@@ -37,13 +37,17 @@ from repro_torch.kernels.rst_read import (DTYPE_CODES, LANE, SUBLANE,
 
 INDEX_BATCH = 256            # steps a CTA indexes at once (kBatch)
 SHARED_MEMORY_LIMIT = 232448  # bytes of shared memory a Hopper CTA may use
+# Length of ops.contended_params_operand's int32 operand, and the row
+# width of ops.mix_params_operand's table.
+CONTENDED_OPERAND_LEN = 6
+MIX_ROW = 4
 
 
 def shared_memory_bytes(num_engines: int = 0) -> int:
     """Shared memory of one CTA of the contention kernels: a batch of
     int64 step indices and, for a mix of `num_engines` engines, its
     int32[N+1, 4] table."""
-    table = (num_engines + 1) * 16 if num_engines else 0
+    table = (num_engines + 1) * MIX_ROW * 4 if num_engines else 0
     return INDEX_BATCH * 8 + table
 
 
@@ -101,7 +105,7 @@ def contend_scalars(params, tiles: int, num_engines: int,
     that its engine count and grant size are the launch's and that every
     engine's window lies inside the buffer."""
     values = torch.as_tensor(params).reshape(-1).tolist()
-    if len(values) != 6:
+    if len(values) != CONTENDED_OPERAND_LEN:
         raise ValueError(
             f"params must be (stride, wset, base, n, num_engines, "
             f"burst_beats), got {values}")
@@ -123,9 +127,9 @@ def mix_rows(table, tiles: int, num_engines: int,
     its shape (with the reference's text), its header and that every
     engine's window lies inside the buffer."""
     table = torch.as_tensor(table)
-    if tuple(table.shape) != (num_engines + 1, 4):
+    if tuple(table.shape) != (num_engines + 1, MIX_ROW):
         raise ValueError(
-            f"mix table must be int32[{num_engines + 1}, 4] "
+            f"mix table must be int32[{num_engines + 1}, {MIX_ROW}] "
             f"(header + one row per engine), got {tuple(table.shape)}")
     header, *rows = table.tolist()
     if header[:2] != [num_engines, burst_beats]:

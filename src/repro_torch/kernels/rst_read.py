@@ -31,6 +31,8 @@ MIN_TXNS_PER_CTA = 16
 
 # dtype codes of csrc/rst.cu.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# Length of the int32 operand ops.params_operand packs.
+OPERAND_LEN = 4
 
 
 def check_buffer(buf: torch.Tensor, burst_rows: int,
@@ -65,7 +67,7 @@ def stream_scalars(params, grid_txns: int, tiles: int
     clamped to the grid as the TPU grid clamps it; checks that every tile
     index ``base + (i * stride) % wset`` lies inside the buffer."""
     values = torch.as_tensor(params).reshape(-1).tolist()
-    if len(values) != 4:
+    if len(values) != OPERAND_LEN:
         raise ValueError(
             f"params must be (stride, wset, base, n), got {values}")
     stride, wset, base, n = (int(v) for v in values)

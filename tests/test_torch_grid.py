@@ -6,7 +6,10 @@ The cases are those of tests/core/test_timing_differential.py and
 tests/core/test_grid_equivalence.py with `torchgrid` in the role of
 `jaxgrid`.  The oracle is the reference's NumPy model
 (`repro.core.timing_model`) or a per-point `repro.core.Sweep` on `sim`,
-at rel 1e-9; the reference's `timing_jax` is never imported.  Bound
+at rel 1e-9; the reference's `timing_jax` is never imported.  Each of
+the tier's five entry points is also pinned against the port's own NumPy
+model (`repro_torch.core.timing_model`), the pairing the port's
+repro-lint (REPRO-O004) requires.  Bound
 names are compared only away from ties (the three bounds tied within
 1e-9), where float noise may pick either.
 """
@@ -21,6 +24,7 @@ import repro_torch.core as port_core
 from repro.core import timing_model as ref_tm
 from repro.core.engine_mix import EngineMix as RefMix
 from repro.core.experiments import run_experiment as ref_run
+from repro_torch.core import timing_model as tm
 from repro_torch.core import timing_torch as tt
 from repro_torch.core.engine import TorchGridBackend
 from repro_torch.core.engine_mix import EngineMix
@@ -399,6 +403,109 @@ def test_evaluate_points_rejects_bad_requests():
     with pytest.raises(ValueError, match="request kind"):
         tt.evaluate_points(port_core.HBM, [("lat", p)], device="cpu")
     assert tt.evaluate_points(port_core.HBM, [], device="cpu") == []
+
+
+# ---------------------------------------------------------------------------
+# Every entry point against the port's own NumPy model.
+# ---------------------------------------------------------------------------
+
+
+def _port_value(req):
+    """The port's NumPy model on one same-channel request of
+    `evaluate_points`."""
+    spec = port_core.HBM
+    m = port_core.get_mapping(spec, req[2])
+    if req[0] == "tp":
+        return tm.throughput(req[1], m, spec, op=req[3])
+    _, p, _, op, n, arb, bb, _ = req[:8]
+    if len(req) > 8:
+        return tm.contended_throughput_mix(req[8], m, spec,
+                                           arbitration=arb, burst_beats=bb)
+    return tm.contended_throughput(p, m, spec, num_engines=n, op=op,
+                                   arbitration=arb, burst_beats=bb)
+
+
+@pytest.mark.parametrize("op", ["read", "write", "duplex"])
+@pytest.mark.parametrize("spec_name,policy,kw", TP_CASES,
+                         ids=[f"{c[0]}_{c[1]}_s{c[2]['s']}" for c in TP_CASES])
+def test_throughput_matches_port_model(spec_name, policy, kw, op):
+    spec, p, m = _both(spec_name, policy, kw)[:3]
+    want = tm.throughput(p, m, spec, op=op)
+    got = tt.throughput(p, m, spec, op=op, device="cpu")
+    assert got.gbps == pytest.approx(want.gbps, rel=REL)
+    assert got.bound == want.bound
+    assert got.detail["total_acts"] == want.detail["total_acts"]
+
+
+@pytest.mark.parametrize(
+    "spec_name,policy,kw,op,num_engines,arbitration,burst_beats",
+    REGRESSION_CASES,
+    ids=[f"{c[0]}_{c[1]}_n{c[2]['n']}_s{c[2]['s']}_{c[3]}_N{c[4]}_{c[5]}{c[6]}"
+         for c in REGRESSION_CASES])
+def test_contended_point_matches_port_model(spec_name, policy, kw, op,
+                                            num_engines, arbitration,
+                                            burst_beats):
+    spec, p, m = _both(spec_name, policy, kw)[:3]
+    axes = dict(num_engines=num_engines, op=op, arbitration=arbitration,
+                burst_beats=burst_beats)
+    want = tm.contended_throughput(p, m, spec, **axes)
+    got = tt.contended_throughput(p, m, spec, device="cpu", **axes)
+    _assert_contention_close(got, want, (spec_name, kw, axes))
+
+
+@pytest.mark.parametrize(
+    "spec_name,policy,entries,arbitration,burst_beats",
+    [c[1:] for c in MIX_CASES], ids=[c[0] for c in MIX_CASES])
+def test_mix_point_matches_port_model(spec_name, policy, entries,
+                                      arbitration, burst_beats):
+    spec = SPECS[spec_name][0]
+    m = port_core.get_mapping(spec, policy)
+    axes = dict(arbitration=arbitration, burst_beats=burst_beats)
+    want = tm.contended_throughput_mix(_port_mix(entries), m, spec, **axes)
+    got = tt.contended_throughput_mix(_port_mix(entries), m, spec,
+                                      device="cpu", **axes)
+    _assert_contention_close(got, want, entries)
+    assert got.detail["op_switch_cycles"] == pytest.approx(
+        want.detail["op_switch_cycles"], rel=REL, abs=1e-9)
+
+
+def test_evaluate_points_matches_port_model():
+    p0 = port_core.RSTParams(n=512, b=32, s=128, w=0x1000000)
+    p1 = port_core.RSTParams(n=512, b=32, s=2048, w=8192)
+    mix = EngineMix(((p0, "read"), (p1, "write")))
+    reqs = [
+        ("tp", p0, None, "read"),
+        ("tp", p1, "RBC", "duplex"),
+        ("cont", p0, None, "read", 4, "burst", 4, "same_channel"),
+        ("cont", p1, "RBC", "write", 3, "round_robin", 1, "same_channel"),
+        ("cont", p0, None, "read", 2, "exclusive", 1, "same_channel", mix),
+    ]
+    got = tt.evaluate_points(port_core.HBM, reqs, device="cpu")
+    for req, res in zip(reqs, got):
+        want = _port_value(req)
+        if req[0] == "tp":
+            assert res.gbps == pytest.approx(want.gbps, rel=REL), req
+        else:
+            assert res.aggregate_gbps == pytest.approx(
+                want.aggregate_gbps, rel=REL), req
+            assert res.queueing_delay_cycles == pytest.approx(
+                want.queueing_delay_cycles, rel=REL, abs=1e-9), req
+        assert res.bound == want.bound, req
+
+
+def test_evaluate_grid_matches_port_model():
+    axes_kw = dict(_small_axes(port_core.RSTParams),
+                   placements=("same_channel",))
+    axes = tt.GridAxes(**axes_kw)
+    grid = tt.evaluate_grid(port_core.HBM, axes, device="cpu")
+    for i, pt in enumerate(axes.sweep_points()):
+        want = tm.contended_throughput(
+            pt.params, port_core.get_mapping(port_core.HBM, pt.policy),
+            port_core.HBM, num_engines=pt.num_engines, op=pt.op,
+            arbitration=pt.arbitration, burst_beats=pt.burst_beats)
+        assert grid.gbps[i] == pytest.approx(want.aggregate_gbps,
+                                             rel=REL), (i, pt)
+        assert grid.bound[i] == want.bound, (i, pt)
 
 
 # ---------------------------------------------------------------------------

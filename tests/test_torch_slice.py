@@ -210,7 +210,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
             "repro_torch.service", "repro_torch.service.campaign",
             "repro_torch.service.faults", "repro_torch.service.retry",
-            "repro_torch.launch.roofline"} <= set(mods)
+            "repro_torch.launch.roofline", "repro_torch.analysis.lint",
+            "repro_torch.analysis.kernel_shapes",
+            "repro_torch.examples.shuhai_campaign"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -199,6 +199,16 @@ def test_serial_latencies_loop_matches_reference(spec, policy, kw, skw, op):
     _assert_trace(vec.serial_latencies(pp, pm, ps, op=op, **skw), got)
 
 
+@pytest.mark.parametrize("spec,policy,kw,skw", [c[1:] for c in SERIAL_CASES],
+                         ids=_ids(SERIAL_CASES))
+def test_serial_read_latencies_parity(spec, policy, kw, skw):
+    """The port's vectorized read alias against the port's loop oracle,
+    bit for bit (tests/core/test_timing_parity.py's pairing)."""
+    ps, pm, pp = _setup(spec, policy, kw)[0]
+    got = vec.serial_read_latencies(pp, pm, ps, **skw)
+    _assert_trace(got, loop.serial_read_latencies(pp, pm, ps, **skw))
+
+
 # --------------------------------------------------------------- throughput
 
 
