@@ -69,8 +69,25 @@ Phases, each fatal on failure:
      exported *_launch entry typed in _SIGNATURES), and the two examples
      that need no LM: autotune_layout (its three tables) and
      shuhai_campaign on cuda (each experiment gives rows or is refused
-     with the burst or capability text); then one JSON line of kernels,
-     the nvidia-smi line, and the final JSON line.
+     with the burst or capability text);
+  9. the LM serving path on the card, float32 with TF32 off, random
+     weights from a seeded generator: (a) gemma3-1b at full width and
+     depth, forward over 2 x 600 tokens and 600 decode steps through a
+     2048-slot cache (the 22 local layers' 512-slot rings wrap, the 4
+     global layers' decode takes the online softmax), each step's logits
+     against the forward's; (b) its first 6 layers at full width on the
+     card against the card's host CPU; (c) the continuous-batching
+     engine over the full model, 4 slots and 8 requests (prompts of 3 to
+     700 tokens), two of them against an offline greedy decode; (d) all
+     ten archs at smoke() size, decode against forward, and
+     `python -m repro_torch.examples.serve_lm` on the card.  Printed
+     beside the card's name and power limit: parameters and bytes,
+     prefill and decode_step times, tokens/s, the card's busy share of a
+     step (torch.profiler), the step's bytes over time against the data
+     sheet's and phase 6's measured HBM rate, the engine's wall time and
+     counts, and peak memory.  None of the four RST kernels runs here;
+then one JSON line of kernels, the nvidia-smi line, and the final JSON
+line.
 
 It imports torch and the port (repro_torch) only.
 """
@@ -1281,7 +1298,8 @@ def grid_tier(smi):
     held against the CPU and the per-point model; its timing split; the
     measured roofline on `cuda` at the card's shapes; the quick envelope
     on `torchgrid` against `sim`.  Returns the roofline's launches of
-    rst_contend_read and each kernel shape's (time, bound) in ms."""
+    rst_contend_read, each kernel shape's (time, bound) in ms and the
+    measured peak in GB/s."""
     import dataclasses
     import statistics
 
@@ -1456,7 +1474,7 @@ def grid_tier(smi):
     print(f"quick envelope on torchgrid (card) == on sim at rel "
           f"{GRID_REL}: peak_gbps={grid_env.peak_gbps:.3f} "
           f"knee_ai={grid_env.knee_ai():.3f} points={len(grid_env.points)}")
-    return launches, prices
+    return launches, prices, env.peak_gbps
 
 
 # Phase 7: the campaign service, the layout tuner and the roofline report
@@ -1930,6 +1948,362 @@ def static_analysis():
     print(f"phase 8: {time.perf_counter() - t_phase:.3f} s wall")
 
 
+# ------------------------------------------------------------- phase 9
+# The LM serving path on the card: gemma3-1b at full width and depth,
+# float32, random weights from a seeded generator on the card.
+LM_ARCH = "gemma3-1b"
+LM_SEED = 0
+LM_TOKENS = 600          # forward tokens per sequence and decode steps:
+#                          past the 512-slot ring of the 22 local layers
+LM_MAX_SEQ = 2048        # 2048 slots in the 4 global layers, more than
+#                          attn_kv_chunk (1024): decode's online softmax
+LM_DECODE_TOL = 5e-3     # rtol = atol of tests/models/test_archs_smoke.py
+LM_CPU_LAYERS = 6        # full width, 6 layers (layer 5 global)
+LM_CPU_TOKENS = 64
+LM_CPU_ATOL = 1e-3       # card against the card's host CPU, float32
+LM_TIMED_BATCH = 4
+LM_TIMED_STEPS = 30
+LM_PROFILED_STEPS = 5
+ENGINE_SLOTS = 4
+ENGINE_PROMPTS = (3, 700, 40, 257, 12, 513, 96, 5)
+ENGINE_MAX_NEW = 16
+ENGINE_OFFLINE = (0, 5)  # requests held to an offline greedy decode
+LM_DEVICE = "cuda"       # phase 9's device ("cpu" only to rehearse it)
+
+
+def _tf32_off():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}")
+
+
+def _tensor_bytes(tree) -> int:
+    import torch
+
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _within(got, ref, tol):
+    """(max |got - ref|, max of |got - ref| - tol (1 + |ref|)) as 0-d
+    tensors on the card: the second is <= 0 iff allclose(rtol=atol=tol)."""
+    d = (got - ref).abs()
+    return d.max(), (d - tol * (1 + ref.abs())).max()
+
+
+def lm_decode_against_forward(model, params, tokens, full):
+    """Phase 9a's check: one decode step per token through a
+    LM_MAX_SEQ cache, each step's logits against the forward's."""
+    import torch
+
+    b, s = tokens.shape
+    cache = model.init_cache(batch_size=b, max_seq=LM_MAX_SEQ,
+                             dtype=torch.float32, device=LM_DEVICE)
+    err = torch.zeros((), device=LM_DEVICE)
+    worst = torch.full((), -1.0, device=LM_DEVICE)
+    for t in range(s):
+        lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
+        e, w = _within(lg, full[:, t], LM_DECODE_TOL)
+        err, worst = torch.maximum(err, e), torch.maximum(worst, w)
+    torch.cuda.synchronize()
+    return cache, err.item(), worst.item()
+
+
+def lm_offline_greedy(model, params, prompt, n):
+    """The reference test's offline decode: one sequence, prompt tokens
+    fed one by one, then its own greedy tokens."""
+    import torch
+
+    cache = model.init_cache(batch_size=1, max_seq=LM_MAX_SEQ,
+                             dtype=torch.float32, device=LM_DEVICE)
+    toks, out = list(prompt), []
+    for t in range(len(prompt) + n - 1):
+        feed = torch.tensor([[toks[t]]], device=LM_DEVICE)
+        logits, cache = model.decode_step(params, cache, feed)
+        if t >= len(prompt) - 1:
+            out.append(int(logits[0].argmax()))
+            if len(toks) <= t + 1:
+                toks.append(out[-1])
+    return out
+
+
+def lm_smoke_archs():
+    """Phase 9d: every arch at smoke() size, decode against forward on
+    the card (stacked layers, MLA, MoE, rwkv6, hymba, the enc-dec)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        if cfg.moe is not None:      # non-binding capacity, as the test
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+        model = build(cfg)
+        gen = torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED + 2)
+        params = init_params(gen, model.param_specs(), torch.float32,
+                         device=LM_DEVICE)
+        b, s = 2, 8
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device=LM_DEVICE,
+                               generator=gen)
+        batch = {"tokens": tokens}
+        if cfg.is_encdec:
+            batch["frames"] = torch.randn(
+                b, cfg.enc_dec.enc_seq, cfg.d_model, device=LM_DEVICE,
+                generator=gen)
+        if cfg.mrope_sections:
+            pos = torch.arange(s, device=LM_DEVICE)[None].expand(b, s)
+            batch["mrope_positions"] = pos[None].expand(3, b, s)
+        full, _ = model.forward(params, batch)
+        cache = model.init_cache(batch_size=b, max_seq=s + 4,
+                                 dtype=torch.float32, device=LM_DEVICE)
+        if cfg.is_encdec:
+            cache = model.start_cache(params, batch["frames"], cache)
+        err, worst = 0.0, -1.0
+        for t in range(s):
+            lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
+            e, w = _within(lg, full[:, t], LM_DECODE_TOL)
+            err, worst = max(err, e.item()), max(worst, w.item())
+        layout = ("list" if "list" in cache else "stack" if "stack" in cache
+                  else "enc-dec")
+        print(f"9d {arch}: decode == forward over {s} steps, max |diff| "
+              f"{err:.3e} (rtol=atol={LM_DECODE_TOL}), cache {layout}")
+        if not (worst <= 0 and math.isfinite(err)):
+            fail(f"{arch} smoke: decode disagrees with forward "
+                 f"(max |diff| {err})")
+
+
+def lm_serving(smi, peak_gbps):
+    """Phase 9: the LM serving path on the card (see the module
+    docstring); prints its numbers beside the card's name and power
+    limit.  Launches none of the four RST kernels."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rst_contend import (rst_contend_mix_read,
+                                                 rst_contend_read)
+    from repro_torch.kernels.rst_read import rst_read
+    from repro_torch.kernels.rst_write import rst_write
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.registry import build
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    phase("9. LM serving path on the card: gemma3-1b at full width")
+    t_phase = time.perf_counter()
+    rst = (rst_read, rst_write, rst_contend_read, rst_contend_mix_read)
+    rst_before = [k.launches for k in rst]
+    print(f"card: {smi}")
+    _tf32_off()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+
+    # -- 9a: full width and depth, decode against forward
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED)
+    params = init_params(gen, model.param_specs(), torch.float32,
+                         device=LM_DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = _tensor_bytes(params)
+    print(f"9a {LM_ARCH}: {cfg.num_layers} layers (global "
+          f"{[i for i in range(cfg.num_layers) if cfg.layer_is_global(i)]}),"
+          f" d_model {cfg.d_model}, vocab {cfg.vocab_size}: {n_params} "
+          f"parameters, {param_bytes} bytes in float32; card={smi}")
+    tokens = torch.randint(0, cfg.vocab_size, (2, LM_TOKENS),
+                           device=LM_DEVICE, generator=gen)
+    full, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if full.shape != (2, LM_TOKENS, cfg.vocab_size) or \
+            not bool(torch.isfinite(full).all()):
+        fail(f"forward logits {tuple(full.shape)} not finite or misshapen")
+    cache, err, worst = lm_decode_against_forward(model, params, tokens,
+                                                  full)
+    first_global = next(i for i in range(cfg.num_layers)
+                        if cfg.layer_is_global(i))
+    local = cache["list"][0]["mixer"]
+    glob = cache["list"][first_global]["mixer"]
+    ring = (local["k"].shape[1], int(local["kv_pos"].min()),
+            int(local["kv_pos"].max()))
+    print(f"9a {LM_TOKENS} decode_steps (batch 2) == forward over "
+          f"{LM_TOKENS} tokens: max |diff| {err:.3e} "
+          f"(rtol=atol={LM_DECODE_TOL}); local ring {ring[0]} slots holding "
+          f"positions {ring[1]}..{ring[2]} (wrapped); global cache "
+          f"{glob['k'].shape[1]} slots > attn_kv_chunk {cfg.attn_kv_chunk}"
+          f" (online softmax), forward {LM_TOKENS} <= {cfg.attn_kv_chunk} "
+          f"(plain)")
+    if worst > 0 or not math.isfinite(err):
+        fail(f"full-size decode disagrees with forward (max |diff| {err})")
+    window = cfg.attn_window
+    if ring != (window, LM_TOKENS - window, LM_TOKENS - 1):
+        fail(f"the local layers' ring holds {ring}, not the last {window} "
+             f"positions")
+    del full, cache
+
+    # -- 9b: the same weights' first layers on the card and on its host
+    cfg6 = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+    m6 = build(cfg6)
+    p6 = {k: v for k, v in params.items() if k != "layer_list"}
+    p6["layer_list"] = params["layer_list"][:LM_CPU_LAYERS]
+    tok6 = tokens[:1, :LM_CPU_TOKENS]
+    card, _ = m6.forward(p6, {"tokens": tok6})
+    t0 = time.perf_counter()
+    host, _ = m6.forward(tree_map(lambda t: t.cpu(), p6),
+                         {"tokens": tok6.cpu()})
+    cpu_s = time.perf_counter() - t0
+    diff = (card.cpu() - host).abs().max().item()
+    print(f"9b {LM_ARCH} at full width, {LM_CPU_LAYERS} layers (layer "
+          f"{first_global} global), {LM_CPU_TOKENS} tokens: card against "
+          f"the host CPU max |diff| {diff:.3e} (atol {LM_CPU_ATOL}, logits "
+          f"max |x| {host.abs().max().item():.3f}); CPU forward "
+          f"{cpu_s:.3f} s")
+    if not diff <= LM_CPU_ATOL:
+        fail(f"card and CPU logits differ by {diff}")
+    del card, host, p6
+
+    # -- timings of the main path's pieces (printed, not gated)
+    pre_cache = model.init_cache(batch_size=2, max_seq=LM_MAX_SEQ,
+                                 dtype=torch.float32, device=LM_DEVICE)
+    batch = {"tokens": tokens}
+    model.prefill(params, batch, pre_cache)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    model.prefill(params, batch, pre_cache)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    del pre_cache
+    cache = model.init_cache(batch_size=LM_TIMED_BATCH, max_seq=LM_MAX_SEQ,
+                             dtype=torch.float32, device=LM_DEVICE)
+    cache_bytes = _tensor_bytes(cache)
+    feed = tokens[:1, :LM_TIMED_BATCH].reshape(LM_TIMED_BATCH, 1)
+    for _ in range(5):
+        logits, cache = model.decode_step(params, cache, feed)
+    step_ms = []
+    for _ in range(LM_TIMED_STEPS):
+        start.record()
+        logits, cache = model.decode_step(params, cache, feed)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    med = statistics.median(step_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_PROFILED_STEPS):
+            logits, cache = model.decode_step(params, cache, feed)
+        torch.cuda.synchronize()
+    kernels, device_us, by_name = 0, 0.0, {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            kernels += 1
+            device_us += ev.device_time
+            n, us = by_name.get(ev.name, (0, 0.0))
+            by_name[ev.name] = (n + 1, us + ev.device_time)
+    dev_ms = device_us / 1e3 / LM_PROFILED_STEPS
+    logit_bytes = logits.numel() * logits.element_size()
+    step_bytes = param_bytes + cache_bytes + logit_bytes
+    bound_sheet = step_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_meas = step_bytes / (peak_gbps * 1e9) * 1e3
+    weights_sheet = param_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"9 prefill (2 x {LM_TOKENS} tokens, {LM_MAX_SEQ}-slot cache): "
+          f"{prefill_ms:.3f} ms; card={smi}")
+    print(f"9 decode_step at batch {LM_TIMED_BATCH} ({LM_MAX_SEQ}-slot "
+          f"cache): median {med:.3f} ms of {LM_TIMED_STEPS} CUDA-event-timed "
+          f"steps (range {min(step_ms):.3f}-{max(step_ms):.3f}), "
+          f"{LM_TIMED_BATCH / med * 1e3:.1f} tokens/s; card={smi}")
+    print(f"9 decode_step on the card per step: "
+          f"{kernels / LM_PROFILED_STEPS:.0f} kernels, {dev_ms:.3f} ms "
+          f"device time (torch.profiler over {LM_PROFILED_STEPS} steps): "
+          f"busy {dev_ms / med * 100:.1f} % of the step's {med:.3f} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    for name, (n, us) in top:
+        print(f"9   {us / 1e3 / LM_PROFILED_STEPS:.3f} ms/step in "
+              f"{n // LM_PROFILED_STEPS} launches/step: {name[:90]}")
+    print(f"9 decode_step bytes: {param_bytes} weights + {cache_bytes} cache "
+          f"+ {logit_bytes} logits = {step_bytes}; least time "
+          f"{bound_sheet:.3f} ms at the data sheet's "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s (weights alone "
+          f"{weights_sheet:.3f} ms) and {bound_meas:.3f} ms at phase 6's "
+          f"measured {peak_gbps:.1f} GB/s: the step takes "
+          f"{bound_sheet / med * 100:.1f} % and {bound_meas / med * 100:.1f}"
+          f" % of them ({weights_sheet / med * 100:.1f} % of the weights' "
+          f"bound); card={smi}")
+    del cache, logits
+
+    # -- 9c: the continuous-batching engine over the full model
+    rng = torch.Generator().manual_seed(LM_SEED + 1)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in ENGINE_PROMPTS]
+    eng = ContinuousBatchingEngine(model, params, slots=ENGINE_SLOTS,
+                                   max_seq=LM_MAX_SEQ, eos_id=-1,
+                                   device=LM_DEVICE)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=ENGINE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layout = eng.kv_layout
+    print(f"9c engine: {ENGINE_SLOTS} slots, {len(reqs)} requests (prompts "
+          f"{min(ENGINE_PROMPTS)}-{max(ENGINE_PROMPTS)} tokens, "
+          f"max_new_tokens {ENGINE_MAX_NEW}): {wall:.3f} s wall, "
+          f"{stats.engine_steps} engine steps "
+          f"({wall / stats.engine_steps * 1e3:.3f} ms each), "
+          f"prefill_tokens {stats.prefill_tokens}, decode_tokens "
+          f"{stats.decode_tokens}, admitted {stats.admitted}, completed "
+          f"{stats.completed}; kv_layout {'/'.join(layout.dims)} "
+          f"{layout.sizes}; card={smi}")
+    if stats.admitted != len(reqs) or stats.completed != len(reqs) or \
+            not all(r.done and len(r.generated) == ENGINE_MAX_NEW
+                    for r in reqs):
+        fail(f"engine left requests unfinished: {stats}")
+    for i in ENGINE_OFFLINE:
+        want = lm_offline_greedy(model, params, prompts[i], ENGINE_MAX_NEW)
+        print(f"9c request {i} ({len(prompts[i])} prompt tokens): engine "
+              f"{reqs[i].generated[:6]}... == offline greedy decode: "
+              f"{reqs[i].generated == want}")
+        if reqs[i].generated != want:
+            fail(f"request {i}: engine {reqs[i].generated} != offline "
+                 f"{want}")
+    del eng, params
+
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    print(f"9 peak device memory: {peak_mem} bytes ({peak_mem / 2**30:.2f} "
+          f"GiB, torch.cuda.max_memory_allocated)")
+
+    # -- 9d: every arch at smoke size, and the example on the card
+    lm_smoke_archs()
+    proc, ex_wall = run_module(["repro_torch.examples.serve_lm"])
+    if proc.returncode or "completed 10/10" not in proc.stdout or \
+            "on cuda" not in proc.stdout:
+        fail(f"serve_lm on the card: rc {proc.returncode}\n{proc.stdout}"
+             f"\n{proc.stderr}")
+    print(f"9d python -m repro_torch.examples.serve_lm (card): "
+          f"{proc.stdout.splitlines()[1]} ({ex_wall:.3f} s wall)")
+    if [k.launches for k in rst] != rst_before:
+        fail("phase 9 launched an RST kernel")
+    print(f"phase 9: {time.perf_counter() - t_phase:.3f} s wall")
+
+
 def main() -> None:
     name, count, smi = environment()
     sys.path.insert(0, SRC)
@@ -1945,10 +2319,11 @@ def main() -> None:
     launches.update(contention_path())
     kernels = measure(launches, errors, smi, baseline)
     kernels += measure_contention(launches, errors, smi, baseline)
-    roofline_launches, prices = grid_tier(smi)
+    roofline_launches, prices, peak_gbps = grid_tier(smi)
     campaign_launches = campaign_path(smi, prices)
     roofline_cli_refuses()
     static_analysis()
+    lm_serving(smi, peak_gbps)
     for k in kernels:
         if k["name"] == "rst_contend_read":
             k["launches"] += roofline_launches + campaign_launches

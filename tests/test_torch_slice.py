@@ -212,7 +212,15 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.service.faults", "repro_torch.service.retry",
             "repro_torch.launch.roofline", "repro_torch.analysis.lint",
             "repro_torch.analysis.kernel_shapes",
-            "repro_torch.examples.shuhai_campaign"} <= set(mods)
+            "repro_torch.examples.shuhai_campaign",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.gemma3_1b", "repro_torch.models",
+            "repro_torch.models.common", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.transformer", "repro_torch.models.encdec",
+            "repro_torch.models.registry", "repro_torch.serving",
+            "repro_torch.serving.engine",
+            "repro_torch.examples.serve_lm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
