@@ -86,6 +86,25 @@ Phases, each fatal on failure:
      step (torch.profiler), the step's bytes over time against the data
      sheet's and phase 6's measured HBM rate, the engine's wall time and
      counts, and peak memory.  None of the four RST kernels runs here;
+ 10. the LM training path on the card, bf16 compute from float32 master
+     weights, random weights from a seeded generator: (a) gemma3-1b at
+     full width and depth (remat save_boundaries, its config's), 20 steps
+     of make_train_step on 4 x 1024 tokens from the data pipeline with
+     warmup_cosine: every loss and grad norm finite, the last loss below
+     the first; the first step's gradients of its first 6 layers on the
+     card against the card's host CPU (float32 with TF32 off, and bf16);
+     peak memory of a step with each remat setting, "none" above
+     "save_boundaries"; (b) a restart (starcoder2 smoke: 6 steps against
+     3, an async save, a restore and 3 more) equal to rtol 1e-5 / atol
+     1e-6; (c) every arch at smoke() size: a make_train_step of each
+     decoder and the float32 loss, gradient and SGD step of all ten;
+     (d) `python -m repro_torch.examples.train_lm --with-failure` on the
+     card.  Printed beside the card's name and power limit: the step's
+     median time and tokens/s, forward+backward and optim.apply apart,
+     kernels per step and the busy share (torch.profiler), model FLOPs
+     (6 N T) against the bf16 peak and the float32 attention FLOPs apart,
+     optim.apply's bytes against the data sheet's and phase 6's HBM rate,
+     and peak memory.  None of the four RST kernels runs here either;
 then one JSON line of kernels, the nvidia-smi line, and the final JSON
 line.
 
@@ -94,6 +113,7 @@ It imports torch and the port (repro_torch) only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import os
@@ -1190,22 +1210,32 @@ def grid_split_line(res) -> str:
             f"{res.points_per_second:.0f} pts/s")
 
 
-def profile_grid(fn):
-    """Device kernels and their device time in one call, from
-    torch.profiler; None where the profiler reads no device time."""
+def profiled(fn, calls):
+    """(kernels, device ms, {name: (launches, device us)}) of `calls`
+    calls of `fn` under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    kernels, device_us = 0, 0.0
+    kernels, device_us, by_name = 0, 0.0, {}
     for ev in prof.events():
         if ev.device_type.name == "CUDA":
             kernels += 1
             device_us += ev.device_time
-    return (kernels, device_us / 1e3) if kernels else None
+            n, us = by_name.get(ev.name, (0, 0.0))
+            by_name[ev.name] = (n + 1, us + ev.device_time)
+    return kernels, device_us / 1e3, by_name
+
+
+def profile_grid(fn):
+    """Device kernels and their device time in one call, from
+    torch.profiler; None where the profiler reads no device time."""
+    kernels, device_ms, _ = profiled(fn, 1)
+    return (kernels, device_ms) if kernels else None
 
 
 def probe_shapes(points, switch):
@@ -2092,7 +2122,6 @@ def lm_serving(smi, peak_gbps):
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.rst_contend import (rst_contend_mix_read,
@@ -2203,19 +2232,12 @@ def lm_serving(smi, peak_gbps):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
     med = statistics.median(step_ms)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(LM_PROFILED_STEPS):
-            logits, cache = model.decode_step(params, cache, feed)
-        torch.cuda.synchronize()
-    kernels, device_us, by_name = 0, 0.0, {}
-    for ev in prof.events():
-        if ev.device_type.name == "CUDA":
-            kernels += 1
-            device_us += ev.device_time
-            n, us = by_name.get(ev.name, (0, 0.0))
-            by_name[ev.name] = (n + 1, us + ev.device_time)
-    dev_ms = device_us / 1e3 / LM_PROFILED_STEPS
+    def decode():
+        nonlocal logits, cache
+        logits, cache = model.decode_step(params, cache, feed)
+
+    kernels, dev_ms, by_name = profiled(decode, LM_PROFILED_STEPS)
+    dev_ms /= LM_PROFILED_STEPS
     logit_bytes = logits.numel() * logits.element_size()
     step_bytes = param_bytes + cache_bytes + logit_bytes
     bound_sheet = step_bytes / PEAK_BYTES_PER_S * 1e3
@@ -2304,6 +2326,449 @@ def lm_serving(smi, peak_gbps):
     print(f"phase 9: {time.perf_counter() - t_phase:.3f} s wall")
 
 
+# ------------------------------------------------------------ phase 10
+# The LM training path on the card: gemma3-1b at full width and depth,
+# bf16 compute from float32 master weights, random weights from a seeded
+# generator on the card.
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024         # > the local layers' 512-token window; <=
+#                          attn_kv_chunk (1024): attention's plain path
+TRAIN_STEPS = 20         # steps of make_train_step (warmup_cosine 2/20)
+TRAIN_PROFILED = 2
+TRAIN_SPLIT_ITERS = 3    # timed forward+backward and optim.apply calls
+TRAIN_CPU_LAYERS = 6     # full width, 6 layers (layer 5 global)
+TRAIN_CPU_TOKENS = 1024  # the first row of the first step's batch
+TRAIN_CPU_F32_TOL = 1e-4  # relative error norm of each gradient leaf
+TRAIN_CPU_BF16_TOL = 5e-2  # relative error norm over all leaves, bf16
+RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6   # tests/test_system.py
+PEAK_BF16_FLOPS = 989.4e12   # H100 SXM dense bf16, data sheet
+PEAK_F32_FLOPS = 66.9e12     # H100 SXM FP32 (no tensor cores), data sheet
+OPT_BYTES_PER_PARAM = 30     # read f32 grad, master, m, v; write master,
+#                              m, v (f32) and the bf16 params
+
+
+def _relnorm(got, ref):
+    """Relative error norm of two lists of tensors (float64 sums)."""
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(got, ref))
+    den = sum(float((b.double() ** 2).sum()) for b in ref)
+    return math.sqrt(num / den) if den else math.sqrt(num)
+
+
+def _event_ms(fn, iters):
+    """Per-call CUDA-event milliseconds of `iters` calls after one
+    warm-up call, each timed on its own (host time included)."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+# Kernel families of a train step, by name, first match wins.
+KERNEL_FAMILIES = (
+    ("float32 GEMM (SIMT: attention, TF32 off)", ("sgemm", "f32f32")),
+    ("bf16 GEMM (tensor cores)", ("gemm", "nvjet", "xmma")),
+    ("reductions (softmax, logsumexp, norms, sums)",
+     ("reduce", "softmax", "Reduce", "norm")),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise", "Functor")),
+)
+
+
+def kernel_families(by_name, steps):
+    """ms per step and launches per step of each KERNEL_FAMILIES entry
+    (and "other"), largest first."""
+    out = {}
+    for name, (n, us) in by_name.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(k in name for k in keys)), "other")
+        c, t = out.get(fam, (0, 0.0))
+        out[fam] = (c + n, t + us)
+    return sorted(((f, t / 1e3 / steps, c / steps)
+                   for f, (c, t) in out.items()), key=lambda r: -r[1])
+
+
+def train_card_vs_cpu(model6, master6, batch):
+    """Phase 10a's check: the first step's gradients of the first
+    TRAIN_CPU_LAYERS layers at full width on the card and on its host
+    CPU, float32 (TF32 off) and bf16."""
+    import torch
+
+    from repro_torch.launch.train import step_grads
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    host_master = tree_map(lambda t: t.cpu(), master6)
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    out = {}
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bf16")):
+        lc, gc = step_grads(model6, master6, batch, None, dtype=dtype)
+        t0 = time.perf_counter()
+        lh, gh = step_grads(model6, host_master, host_batch, None,
+                            dtype=dtype)
+        cpu_s = time.perf_counter() - t0
+        gc = [g.cpu() for g in gc]
+        per_leaf = [_relnorm([a], [b]) for a, b in zip(gc, gh)]
+        out[name] = (float(lc), float(lh), _relnorm(gc, gh), max(per_leaf),
+                     cpu_s)
+        del gc, gh
+    n = len(tree_leaves(master6))
+    return out, n
+
+
+def smoke_train_archs(dev):
+    """Phase 10c: every arch at smoke() size on the card: one
+    make_train_step (bf16, AdamW) of each decoder arch, and for all ten
+    the float32 loss, gradient and SGD step of
+    tests/models/test_archs_smoke.py::test_train_step_no_nans."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.common import (init_params, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.models.registry import build
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        model = build(cfg)
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED + 3)
+        b, s = 2, 32
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                               generator=gen)
+        batch = {"tokens": tokens}
+        if cfg.is_encdec:
+            batch["frames"] = torch.randn(b, cfg.enc_dec.enc_seq,
+                                          cfg.d_model, device=dev,
+                                          generator=gen)
+        if cfg.mrope_sections:
+            pos = torch.arange(s, device=dev)[None].expand(b, s)
+            batch["mrope_positions"] = pos[None].expand(3, b, s)
+        labels = torch.roll(tokens, -1, dims=1)
+        params = init_params(gen, model.param_specs(), torch.float32,
+                             device=dev)
+
+        def loss_fn(p):
+            logits, aux = model.forward(p, batch)
+            ll = torch.log_softmax(logits, dim=-1)
+            return -torch.gather(ll, -1, labels[..., None]).mean() + aux
+
+        leaves = [t.requires_grad_() for t in tree_leaves(params)]
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        loss = float(loss.detach())
+        gnorm = float(optim.global_norm(list(grads)))
+        with torch.no_grad():
+            loss2 = float(loss_fn(tree_unflatten(
+                params, [p - 0.1 * g for p, g in zip(leaves, grads)])))
+        line = (f"10c {arch}: float32 loss {loss:.4f}, grad norm "
+                f"{gnorm:.4f}, after an SGD step (0.1) {loss2:.4f}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)
+                and gnorm > 0 and loss2 < loss + 0.5):
+            fail(f"{arch} smoke: loss {loss}, grad norm {gnorm}, "
+                 f"after SGD {loss2}")
+        if not cfg.is_encdec:
+            state = init_state(model, cfg, generator=gen, device=dev)
+            step = make_train_step(model, cfg, None, optim.AdamWConfig())
+            state, met = step(state, {"tokens": tokens, "labels": labels,
+                                      **{k: v for k, v in batch.items()
+                                         if k != "tokens"}})
+            tl, tg = float(met["loss"]), float(met["grad_norm"])
+            line += f"; make_train_step (bf16) loss {tl:.4f} grad_norm {tg:.4f}"
+            if not (math.isfinite(tl) and math.isfinite(tg) and tg > 0
+                    and int(state.step) == 1):
+                fail(f"{arch} smoke train step: loss {tl}, grad_norm {tg}")
+        print(line)
+
+
+def restart_exactness(dev, directory):
+    """Phase 10b: tests/test_system.py's restart on the card (starcoder2
+    smoke): 6 steps against 3, an async save, a restore and 3 more."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataLoader
+    from repro_torch.launch.train import (abstract_state, init_state,
+                                          make_train_step)
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build
+
+    cfg = get_config("starcoder2-7b", smoke=True)
+    model = build(cfg)
+    step_fn = make_train_step(model, cfg, None, optim.AdamWConfig())
+    data = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                 global_batch=2))
+
+    def run(state, lo, hi):
+        for s in range(lo, hi):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch_at(s).items()}
+            state, _ = step_fn(state, batch)
+        return state
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        return init_state(model, cfg, generator=gen, device=dev)
+
+    ref = run(fresh(), 0, 6)
+    ck = Checkpointer(directory)
+    mid = run(fresh(), 0, 3)
+    ck.save(2, mid)                 # async: the next step updates in place
+    mid = run(mid, 3, 4)
+    ck.wait()
+    resumed = run(ck.restore(abstract_state(model), device=dev), 3, 6)
+    worst, diff = -1.0, 0.0
+    for a, b in zip(tree_leaves(ref.master), tree_leaves(resumed.master)):
+        d = (b - a).abs()
+        diff = max(diff, float(d.max()))
+        worst = max(worst, float((d - RESTART_ATOL
+                                  - RESTART_RTOL * a.abs()).max()))
+    print(f"10b starcoder2-7b smoke: 6 steps == 3 + save + restore + 3 on "
+          f"the card: master max |diff| {diff:.3e} (rtol {RESTART_RTOL}, "
+          f"atol {RESTART_ATOL}); step {int(resumed.step)}; checkpoints "
+          f"{ck.all_steps()}")
+    if worst > 0 or int(resumed.step) != 6:
+        fail(f"restart does not resume exactly (max |diff| {diff})")
+
+
+def lm_training(smi, peak_gbps):
+    """Phase 10: the LM training path on the card (see the module
+    docstring); prints its numbers beside the card's name and power
+    limit.  Launches none of the four RST kernels."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataLoader
+    from repro_torch.kernels.rst_contend import (rst_contend_mix_read,
+                                                 rst_contend_read)
+    from repro_torch.kernels.rst_read import rst_read
+    from repro_torch.kernels.rst_write import rst_write
+    from repro_torch.launch.train import (init_state, make_train_step,
+                                          step_grads)
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.models.registry import build
+
+    phase("10. LM training path on the card: gemma3-1b at full width")
+    t_phase = time.perf_counter()
+    rst = (rst_read, rst_write, rst_contend_read, rst_contend_mix_read)
+    rst_before = [k.launches for k in rst]
+    dev = LM_DEVICE
+    print(f"card: {smi}")
+    _tf32_off()
+
+    # -- 10a: full width and depth, TRAIN_STEPS steps
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 10)
+    state = init_state(model, cfg, generator=gen, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(state.master))
+    n_leaves = len(tree_leaves(state.master))
+    state_bytes = 3 * _tensor_bytes(state.master)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    data = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=LM_SEED))
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(step).items()}
+
+    print(f"10a {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}: {n_params} parameters in {n_leaves} "
+          f"leaves; remat {cfg.remat!r}; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens (window {cfg.attn_window}, attn_kv_chunk "
+          f"{cfg.attn_kv_chunk}); state {state_bytes} bytes (master, m, v "
+          f"in float32); card={smi}")
+
+    # The first step's gradients, card against host CPU (6 layers).
+    first = batch_at(0)
+    cfg6 = dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS)
+    m6 = build(cfg6)
+    master6 = {k: v for k, v in state.master.items() if k != "layer_list"}
+    master6["layer_list"] = state.master["layer_list"][:TRAIN_CPU_LAYERS]
+    b6 = {k: v[:1, :TRAIN_CPU_TOKENS] for k, v in first.items()}
+    checks, n6 = train_card_vs_cpu(m6, master6, b6)
+    for name, (lc, lh, rel, worst_leaf, cpu_s) in checks.items():
+        print(f"10a first step's gradients, {TRAIN_CPU_LAYERS} layers at full "
+              f"width, 1 x {TRAIN_CPU_TOKENS} tokens, {name}: card loss "
+              f"{lc:.6f} host CPU {lh:.6f}; relative error norm of the "
+              f"{n6} gradient leaves {rel:.3e} (worst leaf {worst_leaf:.3e}); "
+              f"CPU {cpu_s:.3f} s")
+    f32, bf16 = checks["float32"], checks["bf16"]
+    if not (f32[3] <= TRAIN_CPU_F32_TOL and abs(f32[0] - f32[1])
+            <= 1e-5 * abs(f32[1])):
+        fail(f"float32 gradients card vs CPU: worst leaf {f32[3]} > "
+             f"{TRAIN_CPU_F32_TOL}")
+    if not (bf16[2] <= TRAIN_CPU_BF16_TOL and abs(bf16[0] - bf16[1])
+            <= 1e-2 * abs(bf16[1])):
+        fail(f"bf16 gradients card vs CPU: {bf16[2]} > {TRAIN_CPU_BF16_TOL}")
+    del master6, b6, m6
+
+    # TRAIN_STEPS steps of the full model.
+    sched = functools.partial(optim.warmup_cosine, warmup_steps=2,
+                              total_steps=TRAIN_STEPS)
+    opt_cfg = optim.AdamWConfig()
+    step_fn = make_train_step(model, cfg, None, opt_cfg, lr_schedule=sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = batch_at(s)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    peak_train = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[1:])
+    print(f"10a {TRAIN_STEPS} steps of make_train_step (warmup_cosine "
+          f"2/{TRAIN_STEPS}): loss {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"10a grad_norm {' '.join(f'{x:.4f}' for x in gnorms)}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+
+    # The split: forward + backward, and optim.apply, each on its own.
+    batch = batch_at(TRAIN_STEPS)
+    grads = None
+
+    def fwd_bwd():
+        nonlocal grads
+        grads = step_grads(model, state.master, batch, None)[1]
+
+    fb_ms = _event_ms(fwd_bwd, TRAIN_SPLIT_ITERS)
+    gtree = tree_unflatten(state.master, grads)
+
+    def apply():
+        nonlocal state
+        _, state, _ = optim.apply(gtree, state, opt_cfg, 0.0)
+
+    opt_ms = _event_ms(apply, TRAIN_SPLIT_ITERS)
+    opt_kernels, opt_dev, _ = profiled(apply, 1)
+    del grads, gtree
+    fb, op = statistics.median(fb_ms), statistics.median(opt_ms)
+
+    def one_step():
+        nonlocal state
+        state, _ = step_fn(state, batch)
+
+    kernels, dev_ms, by_name = profiled(one_step, TRAIN_PROFILED)
+    dev_ms /= TRAIN_PROFILED
+
+    flops = 6 * n_params * tokens
+    layers = cfg.num_layers
+    attn_fwd = 4 * TRAIN_BATCH * cfg.num_heads * TRAIN_SEQ * TRAIN_SEQ * \
+        cfg.head_dim * layers
+    attn = 3 * attn_fwd          # forward + backward (2x)
+    opt_bytes = OPT_BYTES_PER_PARAM * n_params
+    opt_sheet = opt_bytes / PEAK_BYTES_PER_S * 1e3
+    opt_meas = opt_bytes / (peak_gbps * 1e9) * 1e3
+    print(f"10 train step (gemma3-1b, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"remat {cfg.remat}): median {med:.3f} ms of {TRAIN_STEPS - 1} "
+          f"CUDA-event-timed steps (range {min(step_ms[1:]):.3f}-"
+          f"{max(step_ms[1:]):.3f}; first {step_ms[0]:.3f}), "
+          f"{tokens / med * 1e3:.1f} tokens/s; card={smi}")
+    print(f"10 split: forward+backward (cast, lm_loss, autograd, float32 "
+          f"grads) median {fb:.3f} ms of {TRAIN_SPLIT_ITERS} "
+          f"({' '.join(f'{x:.3f}' for x in fb_ms)}), optim.apply median "
+          f"{op:.3f} ms ({' '.join(f'{x:.3f}' for x in opt_ms)}); card={smi}")
+    print(f"10 train step on the card: {kernels / TRAIN_PROFILED:.0f} "
+          f"kernels, {dev_ms:.3f} ms device time (torch.profiler over "
+          f"{TRAIN_PROFILED} steps): busy {dev_ms / med * 100:.1f} % of the "
+          f"step's {med:.3f} ms")
+    print(f"10 optim.apply on the card: {opt_kernels} kernels, "
+          f"{opt_dev:.3f} ms device time (torch.profiler, one call): busy "
+          f"{opt_dev / op * 100:.1f} % of its {op:.3f} ms")
+    for fam, ms, n in kernel_families(by_name, TRAIN_PROFILED):
+        print(f"10   {ms:.3f} ms/step ({ms / dev_ms * 100:.1f} % of the "
+              f"device time) in {n:.0f} launches/step: {fam}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (n, us) in top:
+        print(f"10   {us / 1e3 / TRAIN_PROFILED:.3f} ms/step in "
+              f"{n // TRAIN_PROFILED} launches/step: {name[:90]}")
+    print(f"10 model FLOPs 6 N T = 6 x {n_params} x {tokens} = {flops:.4e}: "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at the data sheet's "
+          f"{PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s bf16 dense; the step reaches "
+          f"{flops / (med / 1e3) / 1e12:.2f} TFLOP/s, MFU "
+          f"{flops / (med / 1e3) / PEAK_BF16_FLOPS * 100:.2f} %; attention "
+          f"(float32, plain path, not in 6 N T) {attn:.4e} FLOP forward + "
+          f"backward ({attn / PEAK_F32_FLOPS * 1e3:.3f} ms at "
+          f"{PEAK_F32_FLOPS / 1e12:.1f} TFLOP/s FP32); card={smi}")
+    print(f"10 optim.apply bytes: {OPT_BYTES_PER_PARAM} B x {n_params} = "
+          f"{opt_bytes} (read float32 grad, master, m, v; write master, "
+          f"m, v, bf16 params): least time {opt_sheet:.3f} ms at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s and {opt_meas:.3f} ms at "
+          f"phase 6's measured {peak_gbps:.1f} GB/s; apply takes {op:.3f} "
+          f"ms, {opt_sheet / op * 100:.1f} % and {opt_meas / op * 100:.1f} "
+          f"% of them; card={smi}")
+
+    # Peak memory of one step with each remat setting.
+    peaks = {}
+    for policy in ("none", "save_boundaries", "full", "dots"):
+        pm = build(dataclasses.replace(cfg, remat=policy))
+        fn = make_train_step(pm, cfg, None, opt_cfg, lr_schedule=sched)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state, met = fn(state, batch)
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated()
+        print(f"10 peak device memory of a step, remat {policy!r}: "
+              f"{peaks[policy]} bytes ({peaks[policy] / 2**30:.2f} GiB; "
+              f"{(peaks[policy] - base) / 2**30:.2f} GiB above the "
+              f"{base / 2**30:.2f} GiB held before it); loss "
+              f"{float(met['loss']):.4f}; card={smi}")
+    print(f"10 peak device memory over the {TRAIN_STEPS} steps: {peak_train} "
+          f"bytes ({peak_train / 2**30:.2f} GiB); state {state_bytes} bytes "
+          f"+ bf16 params {n_params * 2} + float32 grads {n_params * 4}; "
+          f"float32 logits {TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4}")
+    if not peaks["none"] > peaks["save_boundaries"]:
+        fail(f"remat 'none' peak {peaks['none']} is not above "
+             f"'save_boundaries' {peaks['save_boundaries']}")
+    del state
+
+    # -- 10b, 10c, 10d
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        restart_exactness(dev, d)
+    smoke_train_archs(dev)
+    proc, ex_wall = run_module(["repro_torch.examples.train_lm",
+                                "--with-failure"])
+    out = proc.stdout
+    done = [ln for ln in out.splitlines() if ln.startswith(("done:",
+                                                            "loss "))]
+    if "1 failures" not in out or "restored checkpoint @" not in out or \
+            "(improved)" not in out or "on cuda" not in out:
+        fail(f"train_lm on the card: \n{out}\n{proc.stderr}")
+    print(f"10d python -m repro_torch.examples.train_lm --with-failure "
+          f"(card): {'; '.join(done)} ({ex_wall:.3f} s wall)")
+    if [k.launches for k in rst] != rst_before:
+        fail("phase 10 launched an RST kernel")
+    print(f"phase 10: {time.perf_counter() - t_phase:.3f} s wall")
+
+
 def main() -> None:
     name, count, smi = environment()
     sys.path.insert(0, SRC)
@@ -2324,6 +2789,7 @@ def main() -> None:
     roofline_cli_refuses()
     static_analysis()
     lm_serving(smi, peak_gbps)
+    lm_training(smi, peak_gbps)
     for k in kernels:
         if k["name"] == "rst_contend_read":
             k["launches"] += roofline_launches + campaign_launches

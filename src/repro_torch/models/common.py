@@ -14,12 +14,15 @@ keys; the models are plain functions over it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 
@@ -95,16 +98,26 @@ def _is_spec(x) -> bool:
 
 def tree_map(fn: Callable, tree: Pytree,
              is_leaf: Callable[[Any], bool] = lambda x: False) -> Pytree:
-    """Map `fn` over the leaves of a nested dict/list/tuple, calling it in
-    `tree_leaves` order (dict keys sorted); dicts keep their key order."""
+    """Map `fn` over the leaves of a nested dict/list/tuple/NamedTuple,
+    calling it in `tree_leaves` order (dict keys sorted); dicts keep their
+    key order."""
     if is_leaf(tree):
         return fn(tree)
     if isinstance(tree, dict):
         done = {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
         return {k: done[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     return fn(tree)
+
+
+def tree_unflatten(tree: Pytree, leaves: Sequence) -> Pytree:
+    """`tree`'s structure with `leaves` (in `tree_leaves` order) in place
+    of its own."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def tree_leaves(tree: Pytree,
@@ -130,6 +143,61 @@ def tree_index(tree: Pytree, i: int) -> Pytree:
     are kept."""
     return tree_map(lambda t: t[i] if isinstance(t, torch.Tensor) else t,
                     tree)
+
+
+def tree_unbind(stack: Pytree) -> list:
+    """The per-layer trees of a stacked tree, as views: each leaf is
+    unbound once, so a backward pass stacks the layers' gradients into
+    the stacked leaf in one step."""
+    leaves = tree_leaves(stack)
+    parts = [torch.unbind(t) for t in leaves]
+    return [tree_unflatten(stack, [p[i] for p in parts])
+            for i in range(leaves[0].shape[0])]
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization (the reference's jax.checkpoint sites)
+# ---------------------------------------------------------------------------
+
+
+def _is_unbatched_product(op, args) -> bool:
+    """An un-batched matrix product: `mm`/`addmm`, or the batch-1 `bmm`
+    that `torch.einsum` lowers a product without batch dimensions to."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return True
+    return op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    # jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+    if _is_unbatched_product(op, args):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """`fn` under the reference's remat policy `policy`, while autograd
+    records: "none" runs it as it is; "save_boundaries" and "full" (both
+    `nothing_saveable` in the reference) keep only its inputs and
+    recompute the rest in the backward pass; "dots" keeps the outputs of
+    the un-batched matrix products as well.  Values never change."""
+    if policy == "none":
+        return fn
+    if policy in ("save_boundaries", "full"):
+        context = None
+    elif policy == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+    else:
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if context is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+    return wrapped
 
 
 def _to_tensor(leaf, device: torch.device, dtype) -> torch.Tensor:

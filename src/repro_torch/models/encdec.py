@@ -7,7 +7,10 @@ self-attention (+ KV cache) and cross-attention to the encoder output
 (cross K/V precomputed once by `start_cache`).  The reference's
 jax.lax.scan over stacked layers is a loop over their slices; the decode
 cache is written in place (the caller's old cache is consumed) and its
-`index` is a Python int.
+`index` is a Python int.  With any `cfg.remat` but "none", each encoder
+and decoder layer of `encode`/`forward` runs under a checkpoint that
+keeps only its inputs (the reference's plain jax.checkpoint, whatever
+the policy's name).
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
-                                       first_tensor, logical_constraint,
-                                       norm_spec, stack_specs, tree_index)
+                                       logical_constraint, norm_spec, remat,
+                                       stack_specs, tree_unbind)
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -97,9 +100,8 @@ def _mlp(h, p):
     return torch.einsum("bsf,fd->bsd", ACTIVATIONS["gelu"](up), p["w_down"])
 
 
-def _layers(stack):
-    """Slices of a stacked layer tree, one per layer (views)."""
-    return [tree_index(stack, i) for i in range(first_tensor(stack).shape[0])]
+def _remat(body, cfg: ModelConfig):
+    return remat(body, "none" if cfg.remat == "none" else "full")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,13 +121,18 @@ class EncDecLM:
         if rules is not None:
             x = logical_constraint(x, rules, "batch", None, "act_embed")
             full = logical_constraint(full, rules, "batch", None, None)
-        for lp in _layers(params["enc_layers"]):
+
+        def body(h, lp):
             if rules is not None:
-                x = logical_constraint(x, rules, "batch", None, "act_embed")
-            y = apply_norm(x, lp["ln1"], cfg.norm)
-            x = x + _mha(y, lp["attn"], full, kv_chunk=cfg.attn_kv_chunk)
-            y = apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _mlp(y, lp["mlp"])
+                h = logical_constraint(h, rules, "batch", None, "act_embed")
+            y = apply_norm(h, lp["ln1"], cfg.norm)
+            h = h + _mha(y, lp["attn"], full, kv_chunk=cfg.attn_kv_chunk)
+            y = apply_norm(h, lp["ln2"], cfg.norm)
+            return h + _mlp(y, lp["mlp"])
+
+        body = _remat(body, cfg)
+        for lp in tree_unbind(params["enc_layers"]):
+            x = body(x, lp)
         return apply_norm(x, params["enc_final_norm"], cfg.norm)
 
     # -- decoder (teacher-forced training / prefill) ----------------------
@@ -145,16 +152,21 @@ class EncDecLM:
             x = logical_constraint(x, rules, "batch", None, "act_embed")
             causal = logical_constraint(causal, rules, "batch", None, None)
             xs_full = logical_constraint(xs_full, rules, "batch", None, None)
-        for lp in _layers(params["dec_layers"]):
+
+        def body(h, lp):
             if rules is not None:
-                x = logical_constraint(x, rules, "batch", None, "act_embed")
-            y = apply_norm(x, lp["ln1"], cfg.norm)
-            x = x + _mha(y, lp["self_attn"], causal,
+                h = logical_constraint(h, rules, "batch", None, "act_embed")
+            y = apply_norm(h, lp["ln1"], cfg.norm)
+            h = h + _mha(y, lp["self_attn"], causal,
                          kv_chunk=cfg.attn_kv_chunk)
-            y = apply_norm(x, lp["ln_x"], cfg.norm)
-            x = x + _mha(y, lp["cross_attn"], xs_full, kv=enc)
-            y = apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _mlp(y, lp["mlp"])
+            y = apply_norm(h, lp["ln_x"], cfg.norm)
+            h = h + _mha(y, lp["cross_attn"], xs_full, kv=enc)
+            y = apply_norm(h, lp["ln2"], cfg.norm)
+            return h + _mlp(y, lp["mlp"])
+
+        body = _remat(body, cfg)
+        for lp in tree_unbind(params["dec_layers"]):
+            x = body(x, lp)
         x = apply_norm(x, params["final_norm"], cfg.norm)
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"]).float()
         if rules is not None:
@@ -209,7 +221,7 @@ class EncDecLM:
         cross_mask = torch.ones((b, 1, cache["cross_k"].shape[2]),
                                 dtype=torch.bool, device=x.device)
         write = min(max(int(idx), 0), slots - 1)
-        for i, lp in enumerate(_layers(params["dec_layers"])):
+        for i, lp in enumerate(tree_unbind(params["dec_layers"])):
             sk, sv = cache["self_k"][i], cache["self_v"][i]
             y = apply_norm(x, lp["ln1"], cfg.norm)
             kq = torch.einsum("bsd,dhk->bshk", y, lp["self_attn"]["wk"])

@@ -5,7 +5,10 @@ sequential over time, and a *chunked* closed form (log-space decays,
 chunk = 16 tokens) in which the (t, j) pairs of a chunk are matmuls and
 a loop over chunks carries the recurrent state.  The reference's
 jax.lax.scan loops are explicit Python loops here, with the same math in
-the same order.
+the same order.  As in the reference, each chunk of a chunked form runs
+under a checkpoint (`common.remat`, whatever `cfg.remat` says): a
+backward pass recomputes a chunk's pair tensors instead of keeping them
+for every chunk of every layer.
 
 Numerics: per-channel log decays are clamped at LOG_DECAY_MIN = -8
 (per-token decay 3.4e-4), which bounds every exponent in the chunked
@@ -17,6 +20,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.common import remat
 
 CHUNK = 16
 LOG_DECAY_MIN = -8.0
@@ -64,10 +69,7 @@ def wkv6_chunked(r, k, v, w, u, state0, *, chunk: int = CHUNK):
     tri_lower = torch.tril(ones, diagonal=-1)                  # j < t
     eye = torch.eye(chunk, dtype=f32, device=r.device)
 
-    state = state0.float()
-    ys = []
-    for i in range(n):
-        r_i, k_i, v_i, lw_i = rc[:, i], kc[:, i], vc[:, i], lwc[:, i]
+    def step(state, r_i, k_i, v_i, lw_i):
         c = torch.cumsum(lw_i, dim=1)              # inclusive cumsum
         c_prev = c - lw_i                          # cum up to t-1
         m = c[:, chunk // 2]                       # (B,H,K) midpoint shift
@@ -90,7 +92,14 @@ def wkv6_chunked(r, k, v, w, u, state0, *, chunk: int = CHUNK):
         k_tail = k_i * torch.exp(c_last[:, None] - c)
         state = (torch.exp(c_last)[..., None] * state
                  + torch.einsum("bjhk,bjhv->bhkv", k_tail, v_i))
-        ys.append(y_inter + y_intra)
+        return state, y_inter + y_intra
+
+    step = remat(step, "full")
+    state = state0.float()
+    ys = []
+    for i in range(n):
+        state, y_i = step(state, rc[:, i], kc[:, i], vc[:, i], lwc[:, i])
+        ys.append(y_i)
     y = torch.stack(ys, dim=1).reshape(b, s, h, dv)
     return y, state
 
@@ -216,10 +225,7 @@ def mamba_chunked(u, dt, A, B, C, D, h0, *, chunk: int = CHUNK):
     Af = A.float()
     tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=u.device))
 
-    h = h0.float()
-    ys = []
-    for i in range(nc):
-        u_i, dt_i, b_i, c_i = uc[:, i], dtc[:, i], Bc[:, i], Cc[:, i]
+    def step(h, u_i, dt_i, b_i, c_i):
         dc = torch.cumsum(dt_i, dim=1)                   # (B,C,E) inclusive
         # inter: y_t += C_t . (exp(A * dc_t) * h)
         decay_t = torch.exp(torch.einsum("bce,en->bcen", dc, Af))
@@ -242,7 +248,14 @@ def mamba_chunked(u, dt, A, B, C, D, h0, *, chunk: int = CHUNK):
             "bje,en->bjen", dc_last[:, None] - dc, Af))
         h = (torch.exp(torch.einsum("be,en->ben", dc_last, Af)) * h
              + torch.einsum("bjen,bje,bjn->ben", tail, du, b_i))
-        ys.append(y_inter + y_intra + D[None, None] * u_i)
+        return h, y_inter + y_intra + D[None, None] * u_i
+
+    step = remat(step, "full")
+    h = h0.float()
+    ys = []
+    for i in range(nc):
+        h, y_i = step(h, uc[:, i], dtc[:, i], Bc[:, i], Cc[:, i])
+        ys.append(y_i)
     return torch.stack(ys, dim=1).reshape(b, s, e), h
 
 

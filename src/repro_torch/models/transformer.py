@@ -22,8 +22,12 @@ the same tensors): the caller's old cache is consumed.  Its `index`
 entries are Python ints; the stacked layout keeps one `index` for the
 stack where the reference carries one equal copy per layer.
 
-`cfg.remat` is recorded and checked but has no effect: recomputation
-only matters to a backward pass, which the training slice brings.
+`cfg.remat` decides what a backward pass through `forward` keeps, as
+the reference's jax.checkpoint sites do: with any policy but "none" each
+layer runs under `common.remat` (the unscanned list's layers and the
+stacked layers; deepseek's dense prefix layers are not wrapped, as in the
+reference), so its activations are recomputed in the backward pass
+instead of being kept.  Remat changes memory, never values.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
-                                       norm_spec, stack_specs, tree_index)
+                                       norm_spec, remat, stack_specs,
+                                       tree_index, tree_unbind)
 from repro_torch.models.moe import moe_ffn
 
 REMAT_POLICIES = ("none", "save_boundaries", "full", "dots")
@@ -561,10 +566,15 @@ class TransformerLM:
         if cfg.scan_layers:
             x, aux_total = self._run_stacked(params, x, positions, rules)
         else:
+            def one_layer(h, lp, i):
+                out, aux, _ = _layer_forward(h, lp, cfg, positions, i,
+                                             rules=rules)
+                return out, aux
+
+            one_layer = remat(one_layer, cfg.remat)
             aux_total = 0.0
             for i, lp in enumerate(params["layer_list"]):
-                x, aux, _ = _layer_forward(x, lp, cfg, positions, i,
-                                           rules=rules)
+                x, aux = one_layer(x, lp, i)
                 aux_total = aux_total + aux
         return self._logits(params, x, rules), aux_total
 
@@ -576,10 +586,15 @@ class TransformerLM:
             x, aux, _ = _layer_forward(x, lp, cfg, positions,
                                        cfg.moe_dense_layers[i], rules=rules)
             aux_total = aux_total + aux
-        stack = params["layers"]
-        for i in range(first_tensor(stack).shape[0]):
-            x, a, _ = _layer_forward(x, tree_index(stack, i), cfg,
-                                     positions, n_prefix, rules=rules)
+
+        def body(h, lp):
+            out, a, _ = _layer_forward(h, lp, cfg, positions, n_prefix,
+                                       rules=rules)
+            return out, a
+
+        body = remat(body, cfg.remat)
+        for lp in tree_unbind(params["layers"]):
+            x, a = body(x, lp)
             aux_total = aux_total + a
         return x, aux_total
 

@@ -220,7 +220,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.transformer", "repro_torch.models.encdec",
             "repro_torch.models.registry", "repro_torch.serving",
             "repro_torch.serving.engine",
-            "repro_torch.examples.serve_lm"} <= set(mods)
+            "repro_torch.examples.serve_lm", "repro_torch.optim",
+            "repro_torch.optim.schedule", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.launch.train",
+            "repro_torch.examples.train_lm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
