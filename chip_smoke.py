@@ -105,6 +105,25 @@ Phases, each fatal on failure:
      (6 N T) against the bf16 peak and the float32 attention FLOPs apart,
      optim.apply's bytes against the data sheet's and phase 6's HBM rate,
      and peak memory.  None of the four RST kernels runs here either;
+ 11. the launch layer, the dry run and the quickstart: (a) gemma3-1b at
+     full width (float32, TF32 off) through launch/serve.py's
+     make_prefill_step (2 x 600 tokens into a 2048-slot cache) and 64
+     make_decode_step steps, each step's logits against the forward's,
+     abstract_cache's leaves against the real cache's, and whisper's
+     encoder-decoder prefill branch at smoke() size; (b) the dry run's
+     accounting on a 1 x 1 mesh (the trace is then the device's own
+     step) against the card: the train step at phase 10's 4 x 1024 tokens and the decode
+     step at batch 4 with a 2048-slot cache, the predicted argument bytes
+     equal to the bytes of the tensors the card holds, the predicted peak
+     beside torch.cuda.max_memory_allocated(), and the traced FLOPs
+     against 6 N T; (c) on the host's CPU while (a) and (b) run: `python
+     -m repro_torch.launch.dryrun --arch gemma3-1b --mesh both` (8 cells
+     OK), `--all --mesh both --no-compile` (66 lowered, 14 skipped), a
+     traced cell's process leaving CUDA uninitialised, and `python -m
+     repro_torch.launch.roofline --in-dir build/dryrun` (8 rows); (d) the
+     quickstart's entry point on the card, rst_read's launches counted
+     (added to its entry in the kernels line) and its whole checksum
+     against the plain version's on the host (phase 3's f32 tolerance);
 then one JSON line of kernels, the nvidia-smi line, and the final JSON
 line.
 
@@ -2769,6 +2788,376 @@ def lm_training(smi, peak_gbps):
     print(f"phase 10: {time.perf_counter() - t_phase:.3f} s wall")
 
 
+# Phase 11: the launch layer, the dry run and the quickstart.
+SERVE_PREFILL = 600      # 2 x 600 prompt tokens into a 2048-slot cache
+SERVE_STEPS = 64         # decode steps after the prefill
+SERVE_TOL = 1.5e-5       # rtol = atol: phase 9's decode against forward
+CARD_TRAIN = (4, 1024)   # phase 10's batch: (sequences, tokens each)
+CARD_DECODE = (4, 2048)  # phase 9's timed batch, a 2048-slot cache
+# The band PERF.md §6 predicts for the predicted peak over
+# torch.cuda.max_memory_allocated(); a ratio outside it is printed so.
+PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25)}
+DRYRUN_OUT = os.path.join("build", "dryrun")
+DRYRUN_SUMMARY = re.compile(r"== dry-run: (\d+) OK, (\d+) LOWERED, "
+                            r"(\d+) SKIP, (\d+) FAIL of (\d+) cells ==")
+NO_CARD_CHILD = (
+    "import torch\n"
+    "from repro_torch.launch import dryrun\n"
+    "r = dryrun.run_cells(['gemma3-1b'], ['decode_32k'], [False], None)\n"
+    "print(r[0]['status'], torch.cuda.is_initialized())\n")
+
+
+def _start(args):
+    """`python -m <args>` (or `python -c` with args[0] == "-c") started
+    from the checkout's root in the background; a thread collects its
+    output and the time it ends."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=SRC)
+    cmd = [sys.executable] + (list(args) if args[0] == "-c"
+                              else ["-m", *args])
+    job = {"t0": time.perf_counter(),
+           "proc": subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)}
+
+    def wait():
+        job["out"], job["err"] = job["proc"].communicate()
+        job["t1"] = time.perf_counter()
+
+    job["thread"] = threading.Thread(target=wait, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def _finish(job, what, timeout=600):
+    """The output and wall seconds of a process `_start` began; fails
+    unless it exits 0 within `timeout` seconds of now."""
+    job["thread"].join(timeout)
+    if job["thread"].is_alive():
+        job["proc"].kill()
+        job["thread"].join()
+        fail(f"{what} did not finish in time")
+    if job["proc"].returncode != 0:
+        fail(f"{what} exited {job['proc'].returncode}:\n"
+             f"{job['out'][-4000:]}{job['err'][-4000:]}")
+    return job["out"], job["t1"] - job["t0"]
+
+
+def serve_steps(smi):
+    """Phase 11a: launch/serve.py's steps at full width on the card."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.registry import build
+
+    dev = LM_DEVICE
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 11)
+    params = init_params(gen, model.param_specs(), torch.float32, device=dev)
+    n = SERVE_PREFILL + SERVE_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (2, n), device=dev,
+                           generator=gen)
+    full, _ = model.forward(params, {"tokens": tokens})
+    cache = model.init_cache(batch_size=2, max_seq=LM_MAX_SEQ,
+                             dtype=torch.float32, device=dev)
+
+    def leaf(x):
+        return x if isinstance(x, int) else (tuple(x.shape), x.dtype)
+
+    abstract = serve.abstract_cache(model, 2, LM_MAX_SEQ, torch.float32)
+    if [leaf(x) for x in tree_leaves(abstract)] != \
+            [leaf(x) for x in tree_leaves(cache)]:
+        fail("abstract_cache's shapes and dtypes differ from init_cache's")
+    prefill = serve.make_prefill_step(model)
+    decode = serve.make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, {"tokens": tokens[:, :SERVE_PREFILL]}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    err, worst = _within(lg, full[:, SERVE_PREFILL - 1], SERVE_TOL)
+    errs, worsts, step_ms = [err], [worst], []
+    for t in range(SERVE_PREFILL, n):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        e, w = _within(lg, full[:, t], SERVE_TOL)
+        errs.append(e)
+        worsts.append(w)
+    err = max(e.item() for e in errs)
+    if not (max(w.item() for w in worsts) <= 0 and math.isfinite(err)):
+        fail(f"serve steps disagree with the forward: max |diff| {err}")
+    print(f"11a {LM_ARCH} (float32) make_prefill_step over 2 x "
+          f"{SERVE_PREFILL} tokens into a {LM_MAX_SEQ}-slot cache, then "
+          f"{SERVE_STEPS} make_decode_step steps: logits == forward, max "
+          f"|diff| {err:.3e} (rtol=atol={SERVE_TOL}); abstract_cache == "
+          f"init_cache ({len(tree_leaves(cache))} leaves); prefill "
+          f"{prefill_ms:.3f} ms, decode step median "
+          f"{statistics.median(step_ms):.3f} ms (range {min(step_ms):.3f}-"
+          f"{max(step_ms):.3f}, host clock after synchronize); card={smi}")
+    del full, params, cache
+
+    wcfg = get_config("whisper-small", smoke=True)
+    wm = build(wcfg)
+    wp = init_params(gen, wm.param_specs(), torch.float32, device=dev)
+    batch = {"tokens": torch.randint(0, wcfg.vocab_size, (2, 8), device=dev,
+                                     generator=gen),
+             "frames": torch.randn(2, wcfg.enc_dec.enc_seq, wcfg.d_model,
+                                   device=dev, generator=gen)}
+    ref, _ = wm.forward(wp, batch)
+    wcache = wm.init_cache(batch_size=2, max_seq=16, dtype=torch.float32,
+                           device=dev)
+    lg, wcache = serve.make_prefill_step(wm)(wp, batch, wcache)
+    e, w = _within(lg, ref[:, -1], SERVE_TOL)
+    if not w.item() <= 0:
+        fail(f"whisper prefill != its forward's last logits ({e.item()})")
+    print(f"11a whisper-small smoke: the enc-dec prefill (start_cache, "
+          f"forward) == the forward's last logits, max |diff| "
+          f"{e.item():.3e}")
+
+
+def dryrun_against_card(smi):
+    """Phase 11b: the dry run's accounting on a 1 x 1 mesh against the
+    same steps on the card."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.common import init_params, param_count
+    from repro_torch.models.registry import build
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    dev = LM_DEVICE
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 12)
+    b, s = CARD_TRAIN
+    train_rec = dryrun.lower(cfg, ShapeSpec("card_train", s, b, "train"),
+                             mesh)
+    if train_rec["n_micro"] != 1:
+        fail(f"card train cell: n_micro {train_rec['n_micro']} != 1")
+
+    def train_step():
+        state = init_state(model, cfg, generator=gen, device=dev)
+        batch = {k: torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                  generator=gen, dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step = make_train_step(model, cfg, None, optim.AdamWConfig())
+        return (state, batch), lambda: step(state, batch)
+
+    held_train, peak_train = _card_peak(train_step)
+    b, s = CARD_DECODE
+    decode_rec = dryrun.lower(cfg, ShapeSpec("card_decode", s, b, "decode"),
+                              mesh)
+
+    def decode_step():
+        params = init_params(gen, model.param_specs(), torch.bfloat16,
+                             device=dev)
+        cache = model.init_cache(batch_size=b, max_seq=s,
+                                 dtype=torch.bfloat16, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
+                               generator=gen, dtype=torch.int32)
+        step = serve.make_decode_step(model)
+
+        def run():
+            with torch.no_grad():
+                return step(params, cache, tokens)
+        return (params, cache, tokens), run
+
+    held_decode, peak_decode = _card_peak(decode_step)
+    n_params = param_count(model.param_specs())
+    for kind, rec, held, peak in (
+            ("train", train_rec, held_train, peak_train),
+            ("decode", decode_rec, held_decode, peak_decode)):
+        mem = rec["memory"]
+        if rec["trace_scope"] != "device":
+            fail(f"{kind}: the trace on a 1 x 1 mesh is not the device's "
+                 f"own step ({rec['trace_scope']})")
+        if mem["argument_bytes"] != held:
+            fail(f"{kind}: predicted argument bytes {mem['argument_bytes']} "
+                 f"!= the {held} bytes of the tensors the card holds")
+        predicted = (mem["argument_bytes"] + mem["output_bytes"]
+                     + mem["temp_bytes"] - mem["alias_bytes"])
+        lo, hi = PEAK_BAND[kind]
+        ratio = predicted / peak
+        print(f"11b {kind} ({LM_ARCH}, {rec['trace_mode']} trace in "
+              f"{rec['compile_s']} s): argument bytes predicted "
+              f"{mem['argument_bytes']} == held on the card {held}; peak "
+              f"predicted {predicted} bytes ({predicted / 2**30:.3f} GiB: "
+              f"temp {mem['temp_bytes']}, output {mem['output_bytes']}, "
+              f"alias {mem['alias_bytes']}) against "
+              f"torch.cuda.max_memory_allocated() {peak} bytes "
+              f"({peak / 2**30:.3f} GiB): ratio {ratio:.4f}, "
+              f"{'inside' if lo <= ratio <= hi else 'OUTSIDE'} the band "
+              f"{lo}-{hi}; card={smi}")
+    flops = train_rec["cost"]["flops"]
+    six_nt = 6 * n_params * CARD_TRAIN[0] * CARD_TRAIN[1]
+    print(f"11b traced train-step FLOPs {flops:.4e} against 6 N T = 6 x "
+          f"{n_params} x {CARD_TRAIN[0] * CARD_TRAIN[1]} = {six_nt:.4e}: "
+          f"ratio {flops / six_nt:.4f} (attention, the loss and AdamW are "
+          f"outside 6 N T; remat_dup {train_rec['remat_dup']}); "
+          f"bytes_accessed {train_rec['cost']['bytes_accessed']:.4e}")
+
+
+def _card_peak(make):
+    """(bytes of the tensors `make` allocates, peak device bytes above
+    what was allocated before them while its step runs)."""
+    import torch
+
+    from repro_torch.models.common import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args, run = make()
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(args)
+               if isinstance(t, torch.Tensor))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del args, run, out
+    torch.cuda.empty_cache()
+    return held, peak
+
+
+def quickstart_on_card(smi):
+    """Phase 11d: the quickstart's entry point on the card, rst_read's
+    launches counted; its checksum against the plain version's on the
+    host.  Returns the launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RSTParams
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rst_read import rst_read
+
+    out = io.StringIO()
+    argv = [] if LM_DEVICE == "cuda" else ["--device", LM_DEVICE]
+    t0 = time.perf_counter()
+    rst_read.launches = 0
+    with contextlib.redirect_stdout(out):
+        sample = quickstart.main(argv)
+    launches = rst_read.launches
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    if launches <= 0:
+        fail("the quickstart launched rst_read no time")
+    engine = "CUDA kernel" if LM_DEVICE == "cuda" else "plain PyTorch"
+    if not text.rstrip().endswith("quickstart OK") or \
+            f"({engine} on {LM_DEVICE})" not in text or \
+            f"finite=True on {LM_DEVICE}" not in text:
+        fail(f"quickstart on the card:\n{text}")
+    tile = ops.tile_bytes(torch.float32)
+    p = RSTParams(n=64, b=tile, s=tile, w=64 * tile)
+    host = ops.measure_read_bandwidth(p, device="cpu")
+    got = float(sample.checksum[0, 0])
+    # Every lane against the plain version, at phase 3's f32 tolerance.
+    if sample.checksum.shape != host.checksum.shape:
+        fail(f"quickstart checksum shape {sample.checksum.shape} != the "
+             f"plain version's {host.checksum.shape}")
+    diff = np.abs(sample.checksum.astype(np.float64)
+                  - host.checksum.astype(np.float64))
+    if not (diff <= 1e-4 + 1e-5 * np.abs(host.checksum)).all():
+        fail(f"quickstart checksum differs from the plain version's on the "
+             f"host: max |diff| {diff.max():.3e} (rtol 1e-5, atol 1e-4)")
+    if got != float(host.checksum[0, 0]):
+        fail(f"quickstart checksum[0,0] {got} != the plain version's "
+             f"{float(host.checksum[0, 0])} on the host")
+    operand = ops.params_operand(p, torch.float32, TILE_ROWS)
+    buf = ops.make_working_buffer(p, torch.float32, device=LM_DEVICE)
+    ms = cuda_ms(lambda: rst_read(operand, buf, grid_txns=p.n), 50)
+    bound = (p.n * p.b + p.b) / PEAK_BYTES_PER_S * 1e3
+    for line in text.splitlines():
+        if line.startswith(("HBM idle", "Aggregate", "sequential",
+                            "contiguous", "best KV", "gemma3")):
+            print(f"11d   {line}")
+    print(f"11d python -m repro_torch.examples.quickstart (its main, "
+          f"in-process) on the card: rst_read launched {launches} times; "
+          f"checksum {sample.checksum.shape} against the plain version's "
+          f"on the host: max |diff| {diff.max():.3e} (rtol 1e-5, atol "
+          f"1e-4), checksum[0,0] {got} equal; its "
+          f"shape (n = {p.n}, B = S = {p.b}, W = {p.w}) takes "
+          f"{ms:.5f} ms a call against a {bound:.6f} ms bytes bound "
+          f"(launch-bound); {wall:.3f} s wall; card={smi}")
+    return launches
+
+
+def launch_layer(smi):
+    """Phase 11: the launch layer, the dry run and the analytic report,
+    and the quickstart (see the module docstring).  Returns the
+    quickstart's rst_read launches."""
+    phase("11. launch layer, dry run and quickstart")
+    t_phase = time.perf_counter()
+    print(f"card: {smi}")
+    _tf32_off()
+    shutil.rmtree(os.path.join(ROOT, DRYRUN_OUT), ignore_errors=True)
+    # (c) runs on the host's cores while (a) and (b) use the card.
+    cells = _start(["repro_torch.launch.dryrun", "--arch", LM_ARCH,
+                    "--mesh", "both", "--out-dir", DRYRUN_OUT])
+    lowered = _start(["repro_torch.launch.dryrun", "--all", "--mesh",
+                      "both", "--no-compile"])
+    no_card = _start(["-c", NO_CARD_CHILD])
+
+    serve_steps(smi)
+    dryrun_against_card(smi)
+
+    for started, what, want in (
+            (cells, f"dryrun --arch {LM_ARCH} --mesh both", (8, 0, 0, 0, 8)),
+            (lowered, "dryrun --all --mesh both --no-compile",
+             (0, 66, 14, 0, 80))):
+        out, wall = _finish(started, what)
+        m = DRYRUN_SUMMARY.search(out)
+        if not m or tuple(map(int, m.groups())) != want:
+            fail(f"{what}: want OK/LOWERED/SKIP/FAIL/cells {want}:\n{out}")
+        for line in out.splitlines():
+            if line.startswith("[OK"):
+                print(f"11c   {line}")
+        print(f"11c python -m repro_torch.launch.{what}: {m.group(0)} "
+              f"({wall:.3f} s wall, on the host's CPU beside 11a-b)")
+    out, wall = _finish(no_card, "a dry-run cell's process")
+    if out.splitlines()[-1].split() != ["OK", "False"]:
+        fail(f"a dry-run cell's process initialised CUDA: {out}")
+    print(f"11c a traced dry-run cell (decode_32k, 16x16) in its own "
+          f"process leaves torch.cuda.is_initialized() False "
+          f"({wall:.3f} s wall)")
+    proc, wall = run_module(["repro_torch.launch.roofline", "--in-dir",
+                             DRYRUN_OUT])
+    rows = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith(f"| {LM_ARCH} |")]
+    analytic = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("| analytic |")]
+    if len(rows) != 8 or len(analytic) != 8:
+        fail(f"roofline --in-dir {DRYRUN_OUT}: {len(rows)} rows, "
+             f"{len(analytic)} analytic rows, want 8:\n{proc.stdout}")
+    for line in rows + [ln for ln in proc.stdout.splitlines()
+                        if "->" in ln]:
+        print(f"11c   {line}")
+    print(f"11c python -m repro_torch.launch.roofline --in-dir {DRYRUN_OUT}: "
+          f"8 rows on the default chip h100_sxm (a model from its data "
+          f"sheet, not a measurement; {wall:.3f} s wall)")
+
+    launches = quickstart_on_card(smi)
+    print(f"phase 11: {time.perf_counter() - t_phase:.3f} s wall")
+    return launches
+
+
 def main() -> None:
     name, count, smi = environment()
     sys.path.insert(0, SRC)
@@ -2790,9 +3179,12 @@ def main() -> None:
     static_analysis()
     lm_serving(smi, peak_gbps)
     lm_training(smi, peak_gbps)
+    quickstart_launches = launch_layer(smi)
     for k in kernels:
         if k["name"] == "rst_contend_read":
             k["launches"] += roofline_launches + campaign_launches
+        if k["name"] == "rst_read":
+            k["launches"] += quickstart_launches
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

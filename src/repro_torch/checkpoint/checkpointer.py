@@ -20,8 +20,9 @@ Properties:
     mid-write never corrupts the latest checkpoint;
   * retention: keep the last K checkpoints;
   * restore onto a device: `restore()` rebuilds the template's tree on
-    `device` (the card unless the caller names the CPU).  Restoring onto
-    a sharded layout waits for the mesh slice of the port.
+    `device` (the card unless the caller names the CPU), whole: the
+    port's steps run on one card, so nothing restores onto the
+    placements of `launch/train.state_shardings`.
 """
 from __future__ import annotations
 

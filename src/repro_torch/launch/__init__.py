@@ -1,2 +1,3 @@
-"""Launch helpers of the port: the grid tier's device list and sharding
-(`mesh`)."""
+"""Launch layer of the port: meshes and shardings (`mesh`), input shapes
+(`shapes`), the train and serving steps (`train`, `serve`), the dry run
+(`dryrun`, `comm_analysis`) and the roofline reports (`roofline`)."""

@@ -1,24 +1,130 @@
-"""Grid-axis sharding for the batched timing model (core/timing_torch.py).
+"""Production meshes, sharding specs, and grid-axis sharding.
 
-A "mesh" here is a list of `torch.device`s: the lane axis of a grid is
-split into one equal part per device, each part evaluated on its device,
-and the parts concatenated.  Divisibility is handled explicitly: a grid
-whose leading axis does not divide the device count is padded by
-repeating its last row (and the caller told by how much), or rejected
-with the exact remainder, never silently truncated or reshaped.
+**The LM half** mirrors the reference's `make_production_mesh`,
+`make_mesh`, `data_axes` and `dp_degree`.  A mesh is a plain
+description, `Mesh(shape, mesh_dim_names)`: the port reads only the
+axis names and sizes (the dry run's shardings, per-device shapes and
+collective bytes), so the (16, 16) and (2, 16, 16) production meshes
+need no process group and no device.  A sharding is a mesh and a
+partition spec: one entry per tensor dimension, each None, a mesh-axis
+name or a tuple of names (`MeshSharding`); `placements` turns it into
+DTensor placements and `local_shape` gives the per-device shape under
+them, an uneven dimension rounded up as XLA pads it.
 
-Importing this module touches no device.
+**The grid half** carries the batched timing model
+(core/timing_torch.py).  A grid "mesh" is a list of `torch.device`s: the
+lane axis of a grid is split into one equal part per device, each part
+evaluated on its device, and the parts concatenated.  Divisibility is
+handled explicitly: a grid whose leading axis does not divide the device
+count is padded by repeating its last row (and the caller told by how
+much), or rejected with the exact remainder, never silently truncated or
+reshaped.
+
+Importing this module touches no device and no process group.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 
+# A partition spec: per tensor dimension None, a mesh axis, or a tuple.
+Spec = Tuple[Any, ...]
 
+
+# ------------------------------------------------------------------ LM mesh
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A device mesh by its axis sizes and names (DeviceMesh's
+    `shape` and `mesh_dim_names`)."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The (16, 16) ("data", "model") mesh, or (2, 16, 16) with "pod"."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def make_mesh(shape, axes) -> Mesh:
+    """Arbitrary mesh for elastic rungs / tests."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} and axes "
+                         f"{tuple(axes)} differ in length")
+    return Mesh(tuple(int(n) for n in shape), tuple(axes))
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a `Mesh` (or a DeviceMesh)."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def data_axes(mesh) -> tuple:
+    """Mesh axes that carry data parallelism (pod + data when present)."""
+    names = mesh.mesh_dim_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def dp_degree(mesh) -> int:
+    sizes = axis_sizes(mesh)
+    out = 1
+    for a in data_axes(mesh):
+        out *= sizes[a]
+    return out
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(mesh, spec: Spec) -> list:
+    """DTensor placements of `spec` on `mesh`: per mesh dimension
+    `Shard(d)` where tensor dimension d is split over it, else
+    `Replicate()`; a dimension over two axes is `Shard(d)` on both."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        for a in _spec_axes(entry):
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def local_shape(mesh, places: Sequence[Any], shape: Sequence[int]
+                ) -> Tuple[int, ...]:
+    """Per-device shape of a `shape` leaf under DTensor placements: each
+    dimension divided by the sizes of the mesh dimensions that shard it,
+    an uneven one rounded up (XLA pads the last shard)."""
+    out = list(shape)
+    for size, p in zip(tuple(mesh.shape), places):
+        if p.is_shard():
+            out[p.dim] = -(-out[p.dim] // size)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSharding:
+    """A mesh and a partition spec: the port's NamedSharding."""
+    mesh: Any
+    spec: Spec
+
+    def placements(self) -> list:
+        return placements(self.mesh, self.spec)
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return local_shape(self.mesh, self.placements(), shape)
+
+
+# ---------------------------------------------------------------- grid axis
 def grid_mesh(num_devices: Optional[int] = None, *,
               device: "torch.device | str | None" = None
               ) -> List[torch.device]:

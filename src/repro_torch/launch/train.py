@@ -7,10 +7,10 @@ microbatches (one microbatch's activations live at a time, and
 PyTorch operation after another, on the device its state lives on.
 
 The loop (`run_training`, `main`) composes it with the data pipeline
-and checkpointing.  Sharding the state over a device mesh
-(`state_shardings`) and the int8-compressed cross-pod gradient reduction
-in the step wait for the mesh slice of the port: `rules` is accepted and
-its hints are kept, as the models keep `logical_constraint`.
+and checkpointing.  `state_shardings` gives the state's shardings on a
+device mesh (the dry run reads their placements and per-device shapes);
+the eager single-card step keeps `rules` as hints, as the models keep
+`logical_constraint`, and applies no placement.
 
 Run: PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b
 [--full] [--device cpu]  (without --device it runs on the CUDA card and
@@ -30,8 +30,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, DataLoader
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MeshSharding
 from repro_torch.models.common import (DEFAULT_RULES, init_params,
-                                       param_shapes, tree_leaves,
+                                       param_sharding, param_shapes,
+                                       tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.models.registry import build
 
@@ -49,10 +51,12 @@ COMPUTE_DTYPE = torch.bfloat16
 
 def make_rules(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     """DEFAULT_RULES + per-arch overrides, filtered to existing mesh axes.
-    `mesh` is anything with `axis_names`, or a sequence of axis names."""
+    `mesh` is a `launch.mesh.Mesh` (`mesh_dim_names`), anything with
+    `axis_names`, or a sequence of axis names."""
     rules = dict(DEFAULT_RULES)
     rules.update(cfg.rules_overrides)
-    names = set(getattr(mesh, "axis_names", mesh))
+    names = set(getattr(mesh, "mesh_dim_names", None)
+                or getattr(mesh, "axis_names", mesh))
 
     def filt(v):
         if v is None:
@@ -63,6 +67,17 @@ def make_rules(cfg: ModelConfig, mesh) -> Dict[str, Any]:
         return vv if vv else None
 
     return {k: filt(v) for k, v in rules.items()}
+
+
+def state_shardings(specs, rules, mesh) -> optim.AdamWState:
+    """The AdamW state's shardings: each master/m/v leaf the mesh and its
+    parameter's spec (`param_sharding`), `step` replicated."""
+    def named():
+        return tree_map(lambda s: MeshSharding(mesh, s),
+                        param_sharding(specs, rules),
+                        is_leaf=lambda x: isinstance(x, tuple))
+    return optim.AdamWState(step=MeshSharding(mesh, ()), master=named(),
+                            m=named(), v=named())
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ Sharding follows the reference's MaxText convention: every parameter and
 activation is annotated with *logical* axis names, and a per-run rules
 table maps them to mesh axes ("pod", "data", "model").  The port keeps
 the table, `resolve` and `logical_constraint` with the reference's
-signatures, but applies no sharding: `logical_constraint` returns its
-input unchanged until the LM half of `launch/mesh.py` is ported.
+signatures.  The dry run reads the parameters' specs as placements on a
+device mesh (`launch/mesh.py`, `launch/train.state_shardings`); the
+eager single-card steps apply none: `logical_constraint` returns its
+input unchanged.
 
 A parameter tree is a nested dict/list of tensors with the reference's
 keys; the models are plain functions over it.
@@ -82,7 +84,7 @@ def logical_constraint(x: torch.Tensor, rules: Mapping[str, Any],
                        *axes: Optional[str]) -> torch.Tensor:
     """Sharding hint by logical axis names.  The axes are resolved (an
     unknown name raises, as in the reference) and `x` is returned
-    unchanged: the port shards nothing until it has a device mesh."""
+    unchanged: the eager single-card steps apply no placement."""
     resolve(rules, axes)
     return x
 

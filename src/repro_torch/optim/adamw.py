@@ -7,8 +7,8 @@ The update is the reference's term by term (`apply`); it is not
 `torch.optim.AdamW`, whose decoupled decay and eps placement give other
 numbers.  `apply` consumes the state it is given: the master weights and
 moments are updated in place (the reference donates them) and returned
-in the new state.  Sharding the state over a device mesh waits for the
-mesh slice of the port.
+in the new state.  The state's shardings on a device mesh are
+`launch/train.state_shardings`'s.
 """
 from __future__ import annotations
 

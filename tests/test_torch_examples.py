@@ -135,3 +135,39 @@ def test_autotune_layout_prints_what_the_reference_prints(monkeypatch,
                   "Saved activations (backward sweeps layers):",
                   "Expert weights (dispatch sweeps experts):"):
         assert title in got
+
+
+# ------------------------------------------------------- quickstart
+def _sections(text):
+    """{section number: its lines} of a quickstart's output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"=== (\d)\. ", line)
+        if m:
+            cur = int(m.group(1))
+        if cur is not None and line.strip():
+            out.setdefault(cur, []).append(line)
+    return out
+
+
+def test_quickstart_on_the_cpu_prints_what_the_reference_prints(
+        monkeypatch, capsys):
+    """`--device cpu`: sections 1 (Shuhai on the simulated U280) and 3
+    (the memory oracle) print the reference script's lines; step 2's
+    checksum (the plain version of rst_read) equals the reference's
+    (Pallas interpret mode) within rel 1e-6; it ends with quickstart OK."""
+    from repro_torch.examples import quickstart
+    sample = quickstart.main(["--device", "cpu"])
+    got = capsys.readouterr().out
+    ref = _reference_script("quickstart.py", [], monkeypatch, capsys).out
+    gs, rs = _sections(got), _sections(ref)
+    assert gs[1] == rs[1] and gs[3] == rs[3]
+    checksum = re.compile(r"(\d+) bytes read, checksum\[0,0\]=([\d.]+)")
+    (gb, gc), (rb, rc) = checksum.search(got).groups(), \
+        checksum.search(ref).groups()
+    assert gb == rb
+    assert float(sample.checksum[0, 0]) == pytest.approx(float(rc),
+                                                         rel=1e-6)
+    assert got.rstrip().endswith("quickstart OK")
+    assert "RST read engine (plain PyTorch on cpu)" in got
+    assert "finite=True on cpu" in got

@@ -242,16 +242,21 @@ def test_report_cli_on_sim_matches_reference(tmp_path, capsys, monkeypatch):
     assert h100 != got and h100.count("| measured |") == 4
 
 
-def test_report_cli_refuses_what_it_cannot_do(cpu_backends, capsys):
+def test_report_cli_refuses_what_it_cannot_do(cpu_backends, capsys,
+                                             tmp_path):
     """At its defaults the measured report probes 32-byte bursts, which
     no CUDA kernel tile matches: `--backend cuda` raises the burst text,
-    with no fallback.  Without --measured (the analytic mode of the JAX
-    package) it exits with a usage error."""
+    with no fallback.  Without --measured it runs the analytic mode, as
+    the reference does: on a directory without dry-run records it prints
+    the table's header and returns (exit code 0)."""
     from repro_torch.launch import roofline as report
     with pytest.raises(ValueError,
                        match="burst B=32 does not match tile bytes 4096"):
         report.main(["--measured", "--backend", "cuda"])
     assert capsys.readouterr().out == ""
-    with pytest.raises(SystemExit):
-        report.main([])
-    assert "pass --measured" in capsys.readouterr().err
+    assert report.main(["--in-dir", str(tmp_path)]) is None
+    out = capsys.readouterr().out
+    assert out.splitlines() == [
+        "| arch | shape | mesh | compute ms | memory ms | collective ms |"
+        " dominant | useful FLOP frac | roofline frac | peak GiB |",
+        "|---|---|---|---|---|---|---|---|---|---|"]

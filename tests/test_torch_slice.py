@@ -226,7 +226,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.data.pipeline", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointer",
             "repro_torch.launch.train",
-            "repro_torch.examples.train_lm"} <= set(mods)
+            "repro_torch.examples.train_lm", "repro_torch.launch.shapes",
+            "repro_torch.launch.serve", "repro_torch.launch.comm_analysis",
+            "repro_torch.launch.dryrun",
+            "repro_torch.examples.quickstart"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
