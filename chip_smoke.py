@@ -116,14 +116,27 @@ Phases, each fatal on failure:
      step at batch 4 with a 2048-slot cache, the predicted argument bytes
      equal to the bytes of the tensors the card holds, the predicted peak
      beside torch.cuda.max_memory_allocated(), and the traced FLOPs
-     against 6 N T; (c) on the host's CPU while (a) and (b) run: `python
-     -m repro_torch.launch.dryrun --arch gemma3-1b --mesh both` (8 cells
-     OK), `--all --mesh both --no-compile` (66 lowered, 14 skipped), a
-     traced cell's process leaving CUDA uninitialised, and `python -m
-     repro_torch.launch.roofline --in-dir build/dryrun` (8 rows); (d) the
-     quickstart's entry point on the card, rst_read's launches counted
-     (added to its entry in the kernels line) and its whole checksum
-     against the plain version's on the host (phase 3's f32 tolerance);
+     against 6 N T; (c) on the host's CPU while (a), (b) and (e) run:
+     `python -m repro_torch.launch.dryrun --arch gemma3-1b --mesh both`
+     (8 cells OK), `--all --mesh both --no-compile` (66 lowered, 14
+     skipped), a traced cell's process leaving CUDA uninitialised, and
+     `python -m repro_torch.launch.roofline --in-dir build/dryrun` (8
+     rows); (d) the quickstart's entry point on the card, rst_read's
+     launches counted (added to its entry in the kernels line) and its
+     whole checksum against the plain version's on the host (phase 3's
+     f32 tolerance);
+     (e) rank 0 of the production 16 x 16 mesh on the card: for
+     gemma3-1b train_4k (one microbatch of 2 x 4096 from the rank's 16
+     sequences, its backward and the update), gemma3-1b decode_32k and
+     mistral-large-123b decode_32k, the dry run's partitioned trace on
+     the host (meta tensors) against the same partitioned step run for
+     real on the card as rank 0 of a one-rank fake process group
+     (`dryrun.run_on_rank`: the collectives return allocated, unfilled
+     buffers; values are not checked, memory is): the predicted
+     argument bytes equal to the bytes of the local tensors the card
+     holds, and the predicted peak over torch.cuda.max_memory_allocated()
+     inside PEAK_BAND, with collectives_traced beside collectives and
+     the host seconds, run after (b) while (c) goes on;
 then one JSON line of kernels, the nvidia-smi line, and the final JSON
 line.
 
@@ -2795,8 +2808,12 @@ SERVE_TOL = 1.5e-5       # rtol = atol: phase 9's decode against forward
 CARD_TRAIN = (4, 1024)   # phase 10's batch: (sequences, tokens each)
 CARD_DECODE = (4, 2048)  # phase 9's timed batch, a 2048-slot cache
 # The band PERF.md §6 predicts for the predicted peak over
-# torch.cuda.max_memory_allocated(); a ratio outside it is printed so.
+# torch.cuda.max_memory_allocated(); 11b prints a ratio outside it so,
+# 11e fails on one.
 PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25)}
+# 11e: cells run as rank 0 of the 16 x 16 mesh on the card.
+RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
+               ("mistral-large-123b", "decode_32k"))
 DRYRUN_OUT = os.path.join("build", "dryrun")
 DRYRUN_SUMMARY = re.compile(r"== dry-run: (\d+) OK, (\d+) LOWERED, "
                             r"(\d+) SKIP, (\d+) FAIL of (\d+) cells ==")
@@ -3033,6 +3050,76 @@ def _card_peak(make):
     return held, peak
 
 
+def rank0_on_card(smi):
+    """Phase 11e: the dry run's partitioned trace of a production cell
+    against the same partitioned step run on the card as rank 0."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shapes import SHAPES
+
+    mesh = make_production_mesh()
+    for arch, shape_name in RANK0_CELLS:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        t0 = time.perf_counter()
+        rec = dryrun.lower(cfg, shape, mesh)
+        host_s = time.perf_counter() - t0
+        if rec.get("status") != "OK" or not rec["partitioned"] or \
+                rec["trace_scope"] != "device":
+            fail(f"11e {arch} {shape_name}: the dry run's record is not a "
+                 f"partitioned device trace: {rec}")
+        held = {}
+
+        def before(local):
+            torch.cuda.synchronize()
+            held["bytes"] = sum(t.numel() * t.element_size() for t in local)
+            torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        dryrun.run_on_rank(cfg, shape, mesh, LM_DEVICE, before_step=before)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+        mem = rec["memory"]
+        if mem["argument_bytes"] != held["bytes"]:
+            fail(f"11e {arch} {shape_name}: predicted argument bytes "
+                 f"{mem['argument_bytes']} != the {held['bytes']} bytes of "
+                 f"the local tensors rank 0 holds on the card")
+        predicted = (mem["argument_bytes"] + mem["output_bytes"]
+                     + mem["temp_bytes"] - mem["alias_bytes"])
+        lo, hi = PEAK_BAND[shape.kind]
+        ratio = predicted / peak
+        if not lo <= ratio <= hi:
+            fail(f"11e {arch} {shape_name}: predicted peak {predicted} over "
+                 f"max_memory_allocated() {peak} = {ratio:.4f}, outside "
+                 f"{lo}-{hi}")
+        traced, implied = rec["collectives_traced"], rec["collectives"]
+        print(f"11e {arch} {shape_name}, rank 0 of 16x16 "
+              f"({rec['trace_mode']} partitioned trace, "
+              f"{rec.get('n_micro', 1)} microbatch(es) on the host, one on "
+              f"the card): argument bytes predicted "
+              f"{mem['argument_bytes']} == held on the card "
+              f"{held['bytes']}; peak predicted {predicted} bytes "
+              f"({predicted / 2**30:.3f} GiB: temp {mem['temp_bytes']}, "
+              f"output {mem['output_bytes']}, alias {mem['alias_bytes']}) "
+              f"against torch.cuda.max_memory_allocated() {peak} bytes "
+              f"({peak / 2**30:.3f} GiB): ratio {ratio:.4f}, inside "
+              f"{lo}-{hi}; flops {rec['cost']['flops']:.4e}, "
+              f"bytes_accessed {rec['cost']['bytes_accessed']:.4e}; "
+              f"collectives_traced total {traced['total']:.4e} "
+              f"({ {k: v for k, v in traced.items() if k != 'total'} }) "
+              f"beside collectives total {implied['total']:.4e} "
+              f"({ {k: v for k, v in implied.items() if k != 'total'} }); "
+              f"host {host_s:.3f} s to trace, {run_s:.3f} s to run on the "
+              f"card; card={smi}")
+
+
 def quickstart_on_card(smi):
     """Phase 11d: the quickstart's entry point on the card, rst_read's
     launches counted; its checksum against the plain version's on the
@@ -3108,7 +3195,7 @@ def launch_layer(smi):
     print(f"card: {smi}")
     _tf32_off()
     shutil.rmtree(os.path.join(ROOT, DRYRUN_OUT), ignore_errors=True)
-    # (c) runs on the host's cores while (a) and (b) use the card.
+    # (c) runs on the host's cores while (a), (b) and (e) use the card.
     cells = _start(["repro_torch.launch.dryrun", "--arch", LM_ARCH,
                     "--mesh", "both", "--out-dir", DRYRUN_OUT])
     lowered = _start(["repro_torch.launch.dryrun", "--all", "--mesh",
@@ -3117,6 +3204,7 @@ def launch_layer(smi):
 
     serve_steps(smi)
     dryrun_against_card(smi)
+    rank0_on_card(smi)
 
     for started, what, want in (
             (cells, f"dryrun --arch {LM_ARCH} --mesh both", (8, 0, 0, 0, 8)),
@@ -3130,7 +3218,7 @@ def launch_layer(smi):
             if line.startswith("[OK"):
                 print(f"11c   {line}")
         print(f"11c python -m repro_torch.launch.{what}: {m.group(0)} "
-              f"({wall:.3f} s wall, on the host's CPU beside 11a-b)")
+              f"({wall:.3f} s wall, on the host's CPU beside 11a-b, 11e)")
     out, wall = _finish(no_card, "a dry-run cell's process")
     if out.splitlines()[-1].split() != ["OK", "False"]:
         fail(f"a dry-run cell's process initialised CUDA: {out}")

@@ -9,14 +9,14 @@ state, cache and batch leaf is a meta tensor.
 "Lowering" builds the abstract state (train) or bf16 parameters and
 cache (prefill, decode), the batch, and their shardings on the mesh;
 with ``--no-compile`` a record stops there, status ``LOWERED``.
-"Compiling" traces the step on meta tensors at the per-device
-microbatch and records, with the reference's keys:
+"Compiling" traces one device's step and records, with the reference's
+keys:
 
   * memory — `argument_bytes` is exact: each argument leaf's per-device
     bytes under its placements (an uneven dimension rounded up, as XLA
     pads it); the donated arguments (the state in training, the cache
     in serving) are `alias_bytes`, as `donate_argnums` makes them.
-    `temp_bytes` is the peak of live meta-tensor bytes the step makes
+    `temp_bytes` is the peak of live bytes the step makes on the device
     (counted when an op makes a tensor, uncounted when it is freed),
     less the step's new outputs, which are `output_bytes` with the
     aliased arguments.  Training traces one microbatch's forward,
@@ -25,24 +25,29 @@ microbatch and records, with the reference's keys:
     one `FlopCounterMode` applies (the tests hold the two equal),
     counted in the same dispatch pass as the bytes; `bytes_accessed`
     the sum of each dispatched op's input and output bytes (view ops,
-    which move nothing, left out); forward and
-    backward count `n_micro` times, the update once.  XLA's
-    `cost_analysis` counts a scanned loop body once (a stacked model's
-    layers, the microbatches); the trace counts every layer and every
-    microbatch.
-  * collectives and remat_dup — `launch/comm_analysis.py`.
+    which move nothing, left out); forward and backward count
+    `n_micro` times, the update once.  XLA's `cost_analysis` counts a
+    scanned loop body once (a stacked model's layers, the
+    microbatches); the trace counts every layer and every microbatch.
+  * collectives and remat_dup — `launch/comm_analysis.py`, from the
+    placements; "collectives_traced" holds the collectives the trace
+    dispatched, in the same schema (result bytes per kind).
 
-The trace runs the device's batch on whole weights: it is the device's
-own step only when no weight is sharded and no mesh axis but the data
-axes is wider than one (a 1 x 1 mesh, or pure data parallelism).  The
-record's "trace_scope" says which: "device", and the figures above
-stand under the reference's keys; or "data_shard" (the production
-meshes, whose model axis and FSDP split the weights, activations and
-gradients the trace holds whole), and then `output_bytes`,
-`temp_bytes`, `peak_per_device_gib`, `flops` and `bytes_accessed` are
-null and the trace's figures, upper bounds of the device's, stand under
-`output_bytes_upper`, `temp_bytes_upper`, `peak_upper_gib`,
-`flops_upper` and `bytes_accessed_upper`.
+Which step is traced: where no weight is split and no mesh axis but the
+data axes is wider than one (a 1 x 1 mesh, or pure data parallelism),
+the device's batch on whole weights, on meta tensors — the plain trace.
+Everywhere else (the production meshes: the model axis and FSDP split
+the weights) the step is partitioned: every argument is a DTensor over
+a DeviceMesh of the cell's shape and axis names, its local tensor rank
+0's meta shard; the models' sharding hints redistribute; and what the
+trace counts is rank 0's local ops and collectives (`one_rank`,
+`trace_step`).  The process group is a one-rank fake group that lives
+only inside the trace.  DTensor's propagation decides how each op is
+split, with the choices `gspmd_choices` makes GSPMD-like; where it
+gathers what GSPMD would keep split, the figures are this program's
+own.  Every record says "trace_scope": "device", and "partitioned"
+which trace ran.  A partitioned op costs several times a plain one's
+host time (DTensor's propagation, cached per op and shape).
 
 Python time per op on meta tensors is high (the SSM scans go chunk by
 chunk, attention by query and key chunks), so where the whole depth
@@ -60,6 +65,9 @@ layer order the kinds fall, which the shortcut does not keep, and the
 tests hold it within 15 % of the whole-depth trace at smoke() size.  A
 record's "trace_mode" says "full" or "shortcut".
 
+`run_on_rank` runs the same partitioned step for real on a card, as
+rank 0 (chip_smoke.py's phase 11e holds the trace's memory to it).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b \\
       --shape train_4k --mesh single
@@ -69,18 +77,24 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import time
 import traceback
 import weakref
 from collections import Counter
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -156,13 +170,174 @@ def whole_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-# The traced figures, and their names where the trace is not the
-# device's own step (an upper bound of the device's).
-_UPPER = {"memory": {"output_bytes": "output_bytes_upper",
-                     "temp_bytes": "temp_bytes_upper",
-                     "peak_per_device_gib": "peak_upper_gib"},
-          "cost": {"flops": "flops_upper",
-                   "bytes_accessed": "bytes_accessed_upper"}}
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (this rank's shard); a tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+# ---------------------------------------------------------------------------
+# One rank of the mesh
+# ---------------------------------------------------------------------------
+
+
+def _fake_backend(common_opts, backend_opts):
+    from torch._C._distributed_c10d import FakeProcessGroup
+    return FakeProcessGroup._create_internal(
+        common_opts.group_rank, common_opts.group_size, backend_opts)
+
+
+@contextlib.contextmanager
+def one_rank(mesh, device_type: str = "cpu"):
+    """Rank 0 of `mesh`'s devices, alone in this process: a fake process
+    group of the mesh's device count (every collective returns a buffer
+    of its result's shape and moves nothing), and a DeviceMesh of the
+    mesh's shape and axis names over it, yielded.  The group is
+    destroyed on exit, so it lives only inside a trace.
+
+    The backend is registered here, from torch's own FakeProcessGroup
+    through `dist.Backend.register_backend`, rather than by importing
+    torch.testing._internal.distributed.fake_pg, which registers the
+    same class as a side effect of its import: the port then leans on
+    no testing module, and nothing is registered before a trace asks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.Backend.register_backend("fake", _fake_backend, extended_api=True,
+                                  devices=["cpu", "cuda"])
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=math.prod(mesh.shape))
+    # DTensor warns of each multi-axis reduction it splits in two; the
+    # trace counts them, so the warnings are kept to errors meanwhile.
+    quiet = logging.getLogger("torch.distributed.tensor")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+    try:
+        yield init_device_mesh(device_type, tuple(mesh.shape),
+                               mesh_dim_names=tuple(mesh.mesh_dim_names))
+    finally:
+        quiet.setLevel(level)
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def gspmd_choices():
+    """Three of DTensor's choices made as GSPMD makes them, for a trace.
+
+    An op's sharding: of the strategies DTensor can carry out (finite
+    cost), the one that cuts least of what every input holds whole on a
+    mesh axis, then changes fewest input placements, then leaves the
+    smallest output on the device, then is cheapest by DTensor's cost
+    model.  DTensor's own choice is the cheapest alone, and its model
+    prices only the inputs' moves: it may cut a replicated operand
+    (free) so the device computes a part the program never split (a
+    later view that divides that dimension then fails), or leave a
+    large output whole on every rank.
+
+    A view that splits a dimension split over a mesh axis into pieces
+    that axis does not divide: the input is gathered first, as for a
+    reshape, where DTensor's strategy for `view` refuses (it may not
+    move data; GSPMD reshards).
+
+    A move from one split dimension to another (an all-to-all): made on
+    every device as DTensor makes it for a CPU mesh, an all-gather and
+    this rank's slice of it, so the host's trace on the meta device and
+    a run on a card are one program.
+
+    `_select_min_cost_strategy`, the strategies of `view` and
+    `_unsafe_view`, and `shard_dim_alltoall` are swapped for the trace
+    and restored after it."""
+    from itertools import chain
+
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import _sharding_prop as prop
+    from torch.distributed.tensor import placement_types
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor._ops import _view_ops
+
+    chosen = prop._select_min_cost_strategy
+    moved = placement_types.shard_dim_alltoall
+    propagator = DTensor._op_dispatcher.sharding_propagator
+    views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
+    strict = {op: (propagator.op_strategy_funcs[op],
+                   propagator.op_to_schema_info.get(op)) for op in views}
+
+    def select(strategy, op_schema=None):
+        specs = strategy.strategies
+        if op_schema is None or len(specs) == 1:
+            return chosen(strategy, op_schema)
+        costs = [float(sum(chain.from_iterable(s.redistribute_cost)))
+                 for s in specs]
+        if min(costs) < 0:           # DTensor's own local-chunking case
+            return chosen(strategy, op_schema)
+
+        def key(i):
+            spec = specs[i]
+            have = [a.placements for a in op_schema.args_spec]
+            want = [w.placements for w in
+                    (spec.input_specs if spec.input_specs is not None
+                     else [spec.output_spec] * len(have))]
+            split_in = [any(not h[d].is_replicate() for h in have)
+                        for d in range(len(have[0]))] if have else []
+            # Cutting what every input holds whole on a mesh axis, each
+            # input placement changed, then an output left whole where
+            # it could be split: GSPMD's order of avoidance.
+            invented = sum(not split_in[d] and not w[d].is_replicate()
+                           for w in want for d in range(len(w)))
+            changes = sum(a != b for h, w in zip(have, want)
+                          for a, b in zip(h, w))
+            out = spec.output_specs
+            out = out[0] if isinstance(out, (tuple, list)) else out
+            parts = math.prod(n for p, n in zip(
+                out.placements, out.mesh.shape) if p.is_shard()) \
+                if out is not None else 1
+            return (math.isinf(costs[i]), invented, changes, -parts,
+                    costs[i])
+        return specs[min(range(len(specs)), key=key)]
+
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+
+    def all_to_all(local, gather_dim, shard_dim, mesh, mesh_dim):
+        whole = gather(local, gather_dim, (mesh, mesh_dim))
+        if hasattr(whole, "wait"):
+            whole = whole.wait()
+        part = torch.chunk(whole, mesh.size(mesh_dim), dim=shard_dim)
+        return part[mesh.get_local_rank(mesh_dim)].contiguous()
+
+    prop._select_min_cost_strategy = select
+    placement_types.shard_dim_alltoall = all_to_all
+    for op in views:
+        _view_ops.register_op_strategy_map(op, torch.Tensor.view,
+                                           schema_info=RuntimeSchemaInfo(1))
+    try:
+        yield
+    finally:
+        prop._select_min_cost_strategy = chosen
+        placement_types.shard_dim_alltoall = moved
+        for op, (func, info) in strict.items():
+            propagator.op_strategy_funcs[op] = func
+            if info is not None:
+                propagator.op_to_schema_info[op] = info
+
+
+def on_rank(tree, shardings, device_mesh, device="meta"):
+    """Every tensor leaf of `tree` (global shapes) as a DTensor on
+    `device_mesh` under the matching `MeshSharding` of `shardings`: its
+    local tensor is rank 0's shard (an uneven dimension rounded up, as
+    `local_bytes` counts it), on the meta device or, for a run on a
+    card, zeros there (so an index read from it stays in range).  Other
+    leaves are kept."""
+    def leaf(t, sh):
+        if not isinstance(t, torch.Tensor):
+            return t
+        shape = sh.shard_shape(t.shape)
+        local = (torch.empty(shape, dtype=t.dtype, device="meta")
+                 if device == "meta" else
+                 torch.zeros(shape, dtype=t.dtype, device=device))
+        return DTensor.from_local(local, device_mesh, sh.placements(),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return tree_unflatten(tree, [leaf(t, sh) for t, sh in
+                                 zip(tree_leaves(tree),
+                                     tree_leaves(shardings))])
 
 
 # ---------------------------------------------------------------------------
@@ -170,47 +345,108 @@ _UPPER = {"memory": {"output_bytes": "output_bytes_upper",
 # ---------------------------------------------------------------------------
 
 
-class _Trace(TorchDispatchMode):
-    """Counts, over the ops dispatched while it is active: the ops, FLOPs
-    (by FlopCounterMode's formulas), bytes read and written, matrix products,
-    and the live bytes of the tensors the ops make (each counted
-    when made, uncounted when freed) with their peak.  Tensors made
-    before it, the arguments, are never counted."""
+# Ops that hand a collective's result on as it is: no new memory.  On
+# the meta device their output is another storage than their input, so
+# it is followed as a view of it.
+PASS_THROUGH = frozenset({"_c10d_functional::wait_tensor",
+                          "_c10d_functional::_wrap_tensor_autograd"})
 
-    def __init__(self):
+
+# The collectives DTensor dispatches, by the reference's names.
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce",
+               "all_to_all_single": "all-to-all"}
+
+
+class _Trace(TorchDispatchMode):
+    """Counts, over the ops dispatched on this device while it is active:
+    the ops, FLOPs (by FlopCounterMode's formulas), bytes read and
+    written, matrix products, the result bytes of each kind of
+    collective, and the live bytes of the storages the ops make, with
+    their peak.  A storage is counted when an op makes it and uncounted
+    when the last tensor the ops returned on it (views included) is
+    freed.  Storages made before it, the arguments', are never counted.
+
+    On DTensors it sees each op three ways: the DTensor op itself, which
+    it hands back to DTensor (NotImplemented); the op on fake tensors of
+    the global shapes, which DTensor's sharding propagation runs to
+    learn the result's shape (not counted: its output is a FakeTensor,
+    and a cached propagation runs none, so the counts do not depend on
+    the cache); and the ops on this rank's local tensors, the
+    collectives among them, which are the device's and are counted.
+    An op on no tensor of `device_type` (the meta device, or the
+    card's) is host work, such as the propagator's shard arithmetic on
+    small CPU tensors, and is not counted either."""
+
+    def __init__(self, device_type: str = "meta"):
         super().__init__()
+        self.device_type = device_type
         self.live = self.peak = 0
         self.ops = self.flops = self.bytes = self.matmuls = 0
+        self.collectives: Counter = Counter()
+        self.holders: Dict[int, list] = {}   # storage -> [tensors, bytes]
 
-    def _free(self, n: int) -> None:
-        self.live -= n
+    def _release(self, key: int) -> None:
+        held = self.holders[key]
+        held[0] -= 1
+        if not held[0]:
+            self.live -= held[1]
+            del self.holders[key]
+
+    def _hold(self, t: torch.Tensor, new: bool) -> None:
+        key = t.untyped_storage()._cdata
+        if key not in self.holders:
+            if not new:
+                return                           # an argument's storage
+            self.holders[key] = [0, t.untyped_storage().nbytes()]
+            self.live += self.holders[key][1]
+            self.peak = max(self.peak, self.live)
+        self.holders[key][0] += 1
+        weakref.finalize(t, self._release, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        outs = [o for o in tree_flatten(out)[0]
+                if isinstance(o, torch.Tensor)]
+        if any(isinstance(o, FakeTensor) for o in outs):
+            return out                           # sharding propagation
+        ins = [t for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)]
+        if all(t.device.type != self.device_type for t in ins + outs):
+            return out                           # host work
+        name = func.name()
+        if name in PASS_THROUGH:
+            for o, i in zip(outs, ins):
+                key = i.untyped_storage()._cdata
+                if key in self.holders and o is not i:
+                    self.holders[key][0] += 1
+                    weakref.finalize(o, self._release, key)
+            return out
         self.ops += 1
-        if func.name() in MATMUL_OPS:
+        if name in MATMUL_OPS:
             self.matmuls += 1
+        kind = COLLECTIVES.get(name.partition("::")[2])
+        if kind is not None:
+            self.collectives[kind] += sum(_nbytes(o) for o in outs)
+            self.collectives[kind + "_count"] += 1
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
-        outs = [o for o in tree_flatten(out)[0]
-                if isinstance(o, torch.Tensor)]
         rets = func._schema.returns
         views = bool(rets) and all(r.alias_info is not None
                                    and not r.alias_info.is_write
                                    for r in rets)
         if not views:
-            ins = tree_flatten((args, kwargs))[0]
-            self.bytes += sum(_nbytes(t) for t in ins + outs
-                              if isinstance(t, torch.Tensor))
+            self.bytes += sum(_nbytes(t) for t in ins + outs)
+        inputs = {t.untyped_storage()._cdata for t in ins}
         for i, o in enumerate(outs):
-            if i < len(rets) and rets[i].alias_info is not None:
-                continue                         # a view or in place
-            n = o.untyped_storage().nbytes()
-            self.live += n
-            self.peak = max(self.peak, self.live)
-            weakref.finalize(o, self._free, n)
+            aliased = i < len(rets) and rets[i].alias_info is not None
+            self._hold(o, not aliased
+                       and o.untyped_storage()._cdata not in inputs)
         return out
 
 
@@ -219,47 +455,126 @@ _ADDITIVE = ("ops", "flops_micro", "flops_once", "bytes_micro",
              "bytes_once", "matmuls", "out_bytes")
 # A whole-depth trace estimated to dispatch more operations than this
 # takes the one-layer-per-kind shortcut (at ~0.1 ms of Python an op on
-# meta tensors, about 10 s of host time).
+# meta tensors, about 10 s of host time; a partitioned trace's ops take
+# several times longer, DTensor's propagation included).
 SHORTCUT_OPS = 100_000
 
 
 def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
-               cache_len: int, rules=None) -> Dict[str, int]:
-    """Trace one step of `cfg`'s model on meta tensors: `inputs` are the
-    device's (micro)batch, `cache_len` the serving cache's slots.
-    Returns the `_ADDITIVE` counts and the peak: "micro" parts are
-    forward and backward (train) or the serving step, "once" the
-    update."""
+               cache_len: int, rules=None, *, mesh=None,
+               shardings: Optional[Dict[str, MeshSharding]] = None,
+               device="meta", n_micro: int = 1,
+               before_step: Optional[Callable[[list], None]] = None
+               ) -> Dict[str, Any]:
+    """Trace one step of `cfg`'s model: `inputs` its (micro)batch,
+    `cache_len` the serving cache's slots.
+
+    Without `mesh` the step runs on meta tensors as they are: the
+    device's batch on whole weights.  With `mesh` (a `launch.mesh.Mesh`)
+    it is partitioned: `inputs` are the global microbatch and
+    `shardings` theirs, every argument (the state, or the bf16 params
+    and the cache, and the batch) is a DTensor over `one_rank(mesh)`
+    whose local tensor is rank 0's shard (`on_rank`, on `device`), the
+    models' `logical_constraint` hints redistribute, and what is counted
+    is rank 0's.  With `n_micro` > 1 the step runs the first of that
+    many microbatches of `inputs` (a view: each rank's first rows).
+    `before_step`, if given, is called with the local tensors of every
+    argument once they are made, before the step runs.
+
+    Returns the `_ADDITIVE` counts, the peak and the collectives:
+    "micro" parts are forward and backward (train) or the serving step,
+    "once" the update."""
     model = build(cfg)
-    tr = _Trace()
-    if kind == "train":
-        state = train_lib.abstract_state(model)
-        with tr:
-            loss, grads = train_lib.step_grads(model, state.master, inputs,
-                                               rules)
-            micro = (tr.flops, tr.bytes)
-            _, state, metrics = optim.apply(
-                tree_unflatten(state.master, grads), state,
-                optim.AdamWConfig(), 1.0)
-            del grads
-        outputs = [loss, metrics["grad_norm"]]
-    else:
-        params = param_shapes(model.param_specs(), dtype=torch.bfloat16)
-        cache = serve_lib.abstract_cache(model, inputs["tokens"].shape[0],
-                                         cache_len)
-        with torch.no_grad(), tr:
-            if kind == "prefill":
-                step = serve_lib.make_prefill_step(model, rules)
-                logits, cache = step(params, inputs, cache)
-            else:
-                step = serve_lib.make_decode_step(model, rules)
-                logits, cache = step(params, cache, inputs["tokens"])
-        micro = (tr.flops, tr.bytes)
-        outputs = [logits]
+    specs = model.param_specs()
+    tr = _Trace(torch.device(device).type)
+    with contextlib.ExitStack() as scope:
+        if mesh is not None:
+            dm = scope.enter_context(one_rank(
+                mesh, "cpu" if device == "meta" else
+                torch.device(device).type))
+            scope.enter_context(implicit_replication())
+            scope.enter_context(gspmd_choices())
+            inputs = {k: on_rank(v, shardings[k], dm, device)
+                      for k, v in inputs.items()}
+        batch = _first_micro(inputs, n_micro)
+        if kind == "train":
+            state = train_lib.abstract_state(model)
+            if mesh is not None:
+                state = on_rank(state, train_lib.state_shardings(
+                    specs, rules, mesh), dm, device)
+            if before_step is not None:
+                before_step([_local(t) for t in tree_leaves((state, inputs))
+                             if isinstance(t, torch.Tensor)])
+            inputs = batch
+            with tr:
+                loss, grads = train_lib.step_grads(model, state.master,
+                                                   inputs, rules)
+                micro = (tr.flops, tr.bytes, Counter(tr.collectives))
+                _, state, metrics = optim.apply(
+                    tree_unflatten(state.master, grads), state,
+                    optim.AdamWConfig(), 1.0)
+                del grads
+            outputs = [loss, metrics["grad_norm"]]
+        else:
+            params = param_shapes(specs, dtype=torch.bfloat16)
+            cache = serve_lib.abstract_cache(model,
+                                             inputs["tokens"].shape[0],
+                                             cache_len)
+            if mesh is not None:
+                params = on_rank(params, _param_shardings(specs, rules, mesh),
+                                 dm, device)
+                cache = on_rank(cache, serve_lib.cache_shardings(
+                    cache, mesh, rules), dm, device)
+            if before_step is not None:
+                before_step([_local(t) for t in
+                             tree_leaves((params, cache, inputs))
+                             if isinstance(t, torch.Tensor)])
+            inputs = batch
+            with torch.no_grad(), tr:
+                if kind == "prefill":
+                    step = serve_lib.make_prefill_step(model, rules)
+                    logits, cache = step(params, inputs, cache)
+                else:
+                    step = serve_lib.make_decode_step(model, rules)
+                    logits, cache = step(params, cache, inputs["tokens"])
+            micro = (tr.flops, tr.bytes, Counter(tr.collectives))
+            outputs = [logits]
+        out_bytes = sum(_nbytes(_local(t)) for t in outputs)
     return {"flops_micro": micro[0], "flops_once": tr.flops - micro[0],
             "bytes_micro": micro[1], "bytes_once": tr.bytes - micro[1],
+            "coll_micro": micro[2], "coll_once": tr.collectives - micro[2],
             "ops": tr.ops, "matmuls": tr.matmuls, "peak": tr.peak,
-            "out_bytes": sum(_nbytes(t) for t in outputs)}
+            "out_bytes": out_bytes}
+
+
+def _first_micro(batch: Dict[str, torch.Tensor], n_micro: int
+                 ) -> Dict[str, torch.Tensor]:
+    """The first of `n_micro` microbatches of `batch`: each leaf's first
+    rows on every rank (its batch dimension's local part divided by
+    `n_micro`), as views."""
+    if n_micro == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        bdim = 1 if k == "mrope_positions" else 0
+        local = _local(v).narrow(bdim, 0, _local(v).shape[bdim] // n_micro)
+        if not isinstance(v, DTensor):
+            out[k] = local
+            continue
+        shape = list(v.shape)
+        shape[bdim] //= n_micro
+        shape = tuple(shape)
+        out[k] = DTensor.from_local(
+            local, v.device_mesh, v.placements, run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
+def _param_shardings(specs, rules, mesh):
+    """The bf16 parameters' shardings: each leaf the mesh and its spec."""
+    return tree_map(lambda s: MeshSharding(mesh, s),
+                    param_sharding(specs, rules),
+                    is_leaf=lambda x: isinstance(x, tuple))
 
 
 # ---------------------------------------------------------------------------
@@ -300,22 +615,26 @@ def depth_config(cfg, counts) -> Any:
 
 
 def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
-                *, shortcut: Optional[bool] = None,
+                *, mesh=None, shardings=None,
+                shortcut: Optional[bool] = None,
                 memo: Optional[dict] = None) -> Dict[str, Any]:
     """`trace_step` of the whole model, or with `shortcut` its
     extrapolation from one layer of each kind and one more of each.  By
     default the shortcut is taken when the whole depth would dispatch
     more than SHORTCUT_OPS operations, scaled from the one-of-each
     trace's count.  The result's "trace_mode" says which was done.
-    `memo` keeps traces across
-    calls: a trace depends on the config, the inputs' shapes and the
-    cache length, not on the rules, which are hints."""
+    `memo` keeps traces across calls: a plain trace depends on the
+    config, the inputs' shapes and the cache length, not on the rules,
+    which are hints; a partitioned one on the mesh and the rules too."""
     def trace(c):
         key = (repr(c), kind, cache_len, tuple(
             (k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())))
+        if mesh is not None:
+            key += (mesh, repr(sorted(rules.items())), repr(shardings))
         if memo is not None and key in memo:
             return memo[key]
-        out = trace_step(c, kind, inputs, cache_len, rules)
+        out = trace_step(c, kind, inputs, cache_len, rules, mesh=mesh,
+                         shardings=shardings)
         if memo is not None:
             memo[key] = out
         return out
@@ -335,6 +654,10 @@ def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
         more = trace(depth_config(cfg, base + Counter({k: 1})))
         for key in _ADDITIVE:
             total[key] += (n - 1) * (more[key] - cost[key])
+        for key in ("coll_micro", "coll_once"):
+            total[key] = Counter({
+                c: total[key][c] + (n - 1) * (more[key][c] - cost[key][c])
+                for c in set(total[key]) | set(more[key])})
         # Training keeps each layer's boundary and gradients, so its peak
         # grows with depth; a serving step frees each layer's work.
         total["peak"] = (total["peak"] + (n - 1) * (more["peak"]
@@ -349,22 +672,54 @@ def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
 # ---------------------------------------------------------------------------
 
 
-def _trace_inputs(specs, shardings, n_micro: int) -> Dict[str, torch.Tensor]:
-    """The device's microbatch: each batch leaf's per-device shape with
-    its batch dimension divided by `n_micro`."""
+def _trace_inputs(specs, shardings, n_micro: int, partitioned: bool
+                  ) -> Dict[str, torch.Tensor]:
+    """The microbatch the trace runs: each batch leaf with its batch
+    dimension divided by `n_micro`, at its global shape for a
+    partitioned trace, else at its per-device shape."""
     out = {}
     for k, v in specs.items():
-        shape = list(shardings[k].shard_shape(v.shape))
+        shape = list(v.shape if partitioned
+                     else shardings[k].shard_shape(v.shape))
         bdim = 1 if k == "mrope_positions" else 0
         shape[bdim] //= n_micro
         out[k] = torch.empty(shape, dtype=v.dtype, device="meta")
     return out
 
 
+def _splits_the_step(mesh, whole_weights: bool) -> bool:
+    """Whether a trace of the device's batch on whole weights would not
+    be the device's own step: a weight is split, or a mesh axis other
+    than the data axes is wider than one."""
+    return not whole_weights or any(
+        n > 1 for a, n in axis_sizes(mesh).items()
+        if a not in data_axes(mesh))
+
+
+def _collective_record(cost, n_micro: int) -> Dict[str, float]:
+    """The traced collectives in `collective_bytes`'s schema: result
+    bytes per kind, "total" and "<kind>_count", the forward and
+    backward's counted `n_micro` times."""
+    both = Counter()
+    for key, v in cost["coll_micro"].items():
+        both[key] += n_micro * v
+    for key, v in cost["coll_once"].items():
+        both[key] += v
+    out = {k: float(v) for k, v in sorted(both.items())
+           if not k.endswith("_count")}
+    out["total"] = float(sum(out.values()))
+    out.update({k: float(v) for k, v in sorted(both.items())
+                if k.endswith("_count")})
+    return out
+
+
 def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
-          memo: Optional[dict] = None) -> Dict[str, Any]:
+          memo: Optional[dict] = None, *,
+          partitioned: Optional[bool] = None) -> Dict[str, Any]:
     """Lower (and, with `compile_`, trace) one step of `cfg` at `shape`
-    on `mesh`; returns the record's fields after its naming keys."""
+    on `mesh`; returns the record's fields after its naming keys.  The
+    trace is partitioned over `mesh` where `_splits_the_step`, unless
+    `partitioned` says otherwise."""
     result: Dict[str, Any] = {}
     model = build(cfg)
     rules = _shape_rules(train_lib.make_rules(cfg, mesh), shape, mesh, cfg)
@@ -385,9 +740,7 @@ def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
         cache = c_shard = None
     else:
         params = param_shapes(specs, dtype=torch.bfloat16)
-        p_shard = tree_map(lambda s: MeshSharding(mesh, s),
-                           param_sharding(specs, rules),
-                           is_leaf=lambda x: isinstance(x, tuple))
+        p_shard = _param_shardings(specs, rules, mesh)
         cache = serve_lib.abstract_cache(model, shape.global_batch,
                                          shape.seq_len)
         c_shard = serve_lib.cache_shardings(cache, mesh, rules)
@@ -404,24 +757,25 @@ def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
         return result
 
     t1 = time.time()
-    inputs = _trace_inputs(b_specs, b_shard, n_micro)
+    if partitioned is None:
+        partitioned = _splits_the_step(mesh, whole_weights)
+    inputs = _trace_inputs(b_specs, b_shard, n_micro, partitioned)
     if shape.kind == "decode":
         inputs = {"tokens": inputs["tokens"]}
+    split = ({"mesh": mesh, "shardings": {k: b_shard[k] for k in inputs}}
+             if partitioned else {})
     cost = traced_cost(cfg, shape.kind, inputs, shape.seq_len, rules,
-                       memo=memo)
+                       memo=memo, **split)
     if shape.kind == "train" and cfg.remat != "none":
         plain = traced_cost(dataclasses.replace(cfg, remat="none"), "train",
-                            inputs, shape.seq_len, rules, memo=memo)
+                            inputs, shape.seq_len, rules, memo=memo, **split)
         remat_dup = remat_duplication(cost["matmuls"], plain["matmuls"])
     else:
         remat_dup = 1.0        # nothing is recomputed without a backward
     result["compile_s"] = round(time.time() - t1, 1)
     result["trace_mode"] = cost["trace_mode"]
-    # The trace holds whole weights and the device's batch.
-    sizes = axis_sizes(mesh)
-    per_device = whole_weights and all(
-        n == 1 for a, n in sizes.items() if a not in data_axes(mesh))
-    result["trace_scope"] = "device" if per_device else "data_shard"
+    result["trace_scope"] = "device"
+    result["partitioned"] = partitioned
 
     out = cost["out_bytes"] + alias
     temp = max(0, cost["peak"] - cost["out_bytes"])
@@ -437,18 +791,37 @@ def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
         "bytes_accessed": float(n_micro * cost["bytes_micro"]
                                 + cost["bytes_once"]),
     }
-    tokens = math.prod(inputs["tokens"].shape)
+    tokens = math.prod(b_shard["tokens"].shard_shape(inputs["tokens"].shape)
+                       if partitioned else inputs["tokens"].shape)
     result["collectives"] = collective_bytes(
         shape.kind, specs, rules, mesh, tokens=tokens, n_micro=n_micro,
         cache=cache, cache_shardings=c_shard)
+    result["collectives_traced"] = _collective_record(cost, n_micro)
     result["remat_dup"] = round(remat_dup, 3)
-    if not per_device:
-        for block, names in _UPPER.items():
-            for key, upper in names.items():
-                result[block][upper] = result[block][key]
-                result[block][key] = None
     result["status"] = "OK"
     return result
+
+
+def run_on_rank(cfg, shape: ShapeSpec, mesh, device,
+                before_step: Optional[Callable[[list], None]] = None
+                ) -> Dict[str, Any]:
+    """One step of `cfg` at `shape` as rank 0 of `mesh`, run for real on
+    `device` (a card): the partitioned program `lower` traces, with
+    every argument's local tensor made there (zeros; the whole batch,
+    of which the step takes the first microbatch) and every collective
+    returning an allocated, unfilled buffer.  Values mean nothing;
+    memory is the point.  `before_step` is `trace_step`'s.  Returns
+    `trace_step`'s counts."""
+    rules = _shape_rules(train_lib.make_rules(cfg, mesh), shape, mesh, cfg)
+    b_shard = batch_shardings(cfg, shape, mesh, rules)
+    inputs = input_specs(cfg, shape)
+    if shape.kind == "decode":
+        inputs = {"tokens": inputs["tokens"]}
+    n_micro = _n_micro(cfg, shape, mesh) if shape.kind == "train" else 1
+    return trace_step(cfg, shape.kind, inputs, shape.seq_len, rules,
+                      mesh=mesh, shardings={k: b_shard[k] for k in inputs},
+                      device=device, n_micro=n_micro,
+                      before_step=before_step)
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -488,12 +861,10 @@ def run_cells(archs, shapes, meshes, out_dir: Optional[str],
                          "status": "FAIL", "error": f"{type(e).__name__}: {e}",
                          "trace": traceback.format_exc()[-2000:]}
                 if r["status"] == "OK":
-                    mem = r["memory"]
-                    peak = (f"peak={mem['peak_per_device_gib']}GiB"
-                            if r["trace_scope"] == "device" else
-                            f"peak<={mem['peak_upper_gib']}GiB")
+                    how = "partitioned" if r["partitioned"] else "plain"
                     note = (f"trace={r['compile_s']}s ({r['trace_mode']}, "
-                            f"{r['trace_scope']}) {peak}")
+                            f"{how}) peak="
+                            f"{r['memory']['peak_per_device_gib']}GiB")
                 else:
                     note = r.get("reason", r.get("error", ""))[:120]
                 print(f"[{r['status']:7s}] {tag} {note}", flush=True)

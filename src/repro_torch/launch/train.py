@@ -24,6 +24,7 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import optim
 from repro_torch.configs import get_config
@@ -32,7 +33,8 @@ from repro_torch.data import DataConfig, DataLoader
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import MeshSharding
 from repro_torch.models.common import (DEFAULT_RULES, init_params,
-                                       param_sharding, param_shapes,
+                                       logical_constraint, param_sharding,
+                                       param_shapes,
                                        tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.models.registry import build
@@ -89,7 +91,14 @@ def lm_loss(model, params, batch, rules) -> Tuple[torch.Tensor, Dict]:
     logits, aux = model.forward(params, batch, rules)
     labels = batch["labels"].long()
     ls = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(ls, -1, labels[..., None])[..., 0]
+    # -ls[..., label] as nll_loss picks it (its backward writes one
+    # value a row, where gather's adds into a zeroed (B, S, V) tensor).
+    nll = F.nll_loss(ls.flatten(0, -2), labels.flatten(),
+                     reduction="none").view(labels.shape)
+    if rules is not None:
+        # Split as the batch is: the mean's backward then hands the
+        # gather's backward a split gradient, not a whole (B, S, V) one.
+        nll = logical_constraint(nll, rules, "batch", None)
     loss = nll.mean()
     # z-loss keeps the softmax normalizer bounded at bf16 scale.
     zl = 1e-4 * torch.square(torch.logsumexp(logits, dim=-1)).mean()

@@ -16,6 +16,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.common import write_columns_, write_rows_
+
 NEG_INF = -2.0e38
 
 
@@ -104,8 +106,9 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
     """
     q = q_pos[:, :, None]
     k = kv_pos[:, None, :]
-    shape = torch.broadcast_shapes(q.shape, k.shape)
-    m = torch.ones(shape, dtype=torch.bool, device=q.device)
+    # Made from its operands, so a mask of split positions is split too.
+    m = (torch.ones_like(q, dtype=torch.bool)
+         & torch.ones_like(k, dtype=torch.bool))
     if causal:
         m &= k <= q
     if window is not None:
@@ -183,14 +186,13 @@ def _attention_online(qg, k, v, mask, scale, softcap, kv_chunk):
     """Blockwise over KV with running max/denominator (online softmax),
     one chunk after another in the reference's scan order; returns
     (B, Sq, G, KH, Dv) float32."""
-    b, sq, g, kh, _ = qg.shape
-    dv = v.shape[3]
-    m_run = torch.full((b, g, kh, sq), NEG_INF, dtype=torch.float32,
-                       device=qg.device)
-    l_run = torch.zeros((b, g, kh, sq), dtype=torch.float32,
-                        device=qg.device)
-    acc = torch.zeros((b, g, kh, sq, dv), dtype=torch.float32,
-                      device=qg.device)
+    # The running statistics are made from the queries (so split
+    # queries split them too); the accumulator starts as one zero per
+    # row, which the first chunk's sum broadcasts to (B,G,KH,Sq,Dv).
+    m_run = torch.full_like(qg[..., 0], NEG_INF,
+                            dtype=torch.float32).movedim(1, -1)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros_like(m_run[..., None])
     for c0 in range(0, k.shape[1], kv_chunk):
         k_i = k[:, c0:c0 + kv_chunk]
         v_i = v[:, c0:c0 + kv_chunk]
@@ -279,14 +281,14 @@ def mla_forward(x: torch.Tensor, p: Dict, positions: torch.Tensor, *,
         c_full, kr_full = cache["c_kv"], cache["k_rope"]
         if s == 1:
             # Per-slot positional write (continuous batching).
-            rows = torch.arange(b, device=x.device)
             at = positions[:, 0].long()
-            c_full.index_put_((rows, at), c_kv[:, 0].to(c_full.dtype))
-            kr_full.index_put_((rows, at), k_rope[:, 0].to(kr_full.dtype))
+            write_rows_(c_full, at, c_kv[:, 0].to(c_full.dtype))
+            write_rows_(kr_full, at, k_rope[:, 0].to(kr_full.dtype))
         else:
             start = min(max(int(idx), 0), c_full.shape[1] - s)
-            c_full[:, start:start + s] = c_kv.to(c_full.dtype)
-            kr_full[:, start:start + s] = k_rope.to(kr_full.dtype)
+            span = slice(start, start + s)
+            write_columns_(c_full, span, c_kv.to(c_full.dtype))
+            write_columns_(kr_full, span, k_rope.to(kr_full.dtype))
         new_cache = {"c_kv": c_full, "k_rope": kr_full, "index": idx + s}
         c_use, kr_use = c_full, kr_full
     else:

@@ -6,9 +6,14 @@ activation is annotated with *logical* axis names, and a per-run rules
 table maps them to mesh axes ("pod", "data", "model").  The port keeps
 the table, `resolve` and `logical_constraint` with the reference's
 signatures.  The dry run reads the parameters' specs as placements on a
-device mesh (`launch/mesh.py`, `launch/train.state_shardings`); the
-eager single-card steps apply none: `logical_constraint` returns its
-input unchanged.
+device mesh (`launch/mesh.py`, `launch/train.state_shardings`) and, for
+a mesh that splits the step, runs it on DTensors: there
+`logical_constraint` redistributes to the hint's placements,
+`token_positions` makes positions split as the tokens are, `take_rows`
+looks an embedding up as its rows are split, and
+`write_rows_` / `write_columns_` write a cache on this rank's shard.  The eager
+single-card steps apply no placement: on a plain tensor both do what the
+model wrote, and nothing more.
 
 A parameter tree is a nested dict/list of tensors with the reference's
 keys; the models are plain functions over it.
@@ -23,10 +28,14 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import placements
 
 Pytree = Any
 
@@ -83,10 +92,142 @@ def resolve(rules: Mapping[str, Any], axes: Sequence[Optional[str]]
 def logical_constraint(x: torch.Tensor, rules: Mapping[str, Any],
                        *axes: Optional[str]) -> torch.Tensor:
     """Sharding hint by logical axis names.  The axes are resolved (an
-    unknown name raises, as in the reference) and `x` is returned
-    unchanged: the eager single-card steps apply no placement."""
-    resolve(rules, axes)
-    return x
+    unknown name raises, as in the reference).  A DTensor is
+    redistributed to the placements they resolve to on its mesh; any
+    other tensor is returned as it is, the same object (the eager
+    single-card steps apply no placement)."""
+    spec = resolve(rules, axes)
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
+
+
+def _split(dt: DTensor, dim: int) -> bool:
+    """Whether `dt`'s dimension `dim` is split over a mesh axis wider
+    than one device."""
+    return any(p.is_shard() and p.dim == dim and n > 1
+               for p, n in zip(dt.placements, dt.device_mesh.shape))
+
+
+def token_positions(tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """(B, S) positions start .. start + S - 1 on every row of `tokens`
+    (B, S, ...), one arange expanded.  For a DTensor the arange is this
+    rank's rows, split as the tokens' rows are."""
+    b, s = tokens.shape[:2]
+    if not isinstance(tokens, DTensor):
+        return torch.arange(start, start + s, device=tokens.device)[None] \
+            .expand(b, s)
+    local = tokens.to_local()
+    steps = torch.arange(start, start + s, device=local.device)[None] \
+        .expand(local.shape[0], s)
+    return DTensor.from_local(
+        steps, tokens.device_mesh,
+        [p if p.is_shard() and p.dim == 0 else Replicate()
+         for p in tokens.placements],
+        run_check=False, shape=(b, s), stride=steps.stride())
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]`: the rows of an embedding table.  A DTensor table is
+    gathered over every axis but the one that splits its rows (as FSDP
+    gathers a weight before use) and, where its rows are split, looked
+    up as an embedding, whose DTensor strategy splits the lookup as the
+    rows are split."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    rows = [Replicate() if p.is_shard() and p.dim != 0 else p
+            for p in table.placements]
+    table = table.redistribute(table.device_mesh, rows)
+    return F.embedding(ids, table) if _split(table, 0) else table[ids]
+
+
+def write_rows_(dst: torch.Tensor, slots: torch.Tensor,
+                values: torch.Tensor) -> None:
+    """`dst[b, slots[b]] = values[b]` for every row b of `dst`, in place:
+    one cache slot a row.  A DTensor is written on this rank's shard."""
+    if isinstance(dst, DTensor):
+        _write_shard_(dst, slots, values, per_row=True)
+    else:
+        rows = torch.arange(dst.shape[0], device=dst.device)
+        dst.index_put_((rows, slots), values)
+
+
+def write_columns_(dst: torch.Tensor, slots, values: torch.Tensor) -> None:
+    """`dst[:, slots] = values`, in place: the same cache slots (a tensor
+    or a slice) in every row.  A DTensor is written on this rank's
+    shard."""
+    if isinstance(dst, DTensor):
+        _write_shard_(dst, slots, values, per_row=False)
+    else:
+        dst[:, slots] = values
+
+
+def _as_shard(t, dst: DTensor, dims, shape, offset) -> torch.Tensor:
+    """The part of `t` that goes with this rank's shard of `dst`, as a
+    local tensor: `dims[d]` is `t`'s dimension for `dst`'s dimension d
+    (None where `t` has none, and for the slot dimension, which `t`
+    keeps whole); `shape` and `offset` are the shard's."""
+    if isinstance(t, DTensor):
+        want = [Shard(dims[p.dim])
+                if p.is_shard() and dims[p.dim] is not None
+                else Replicate() for p in dst.placements]
+        return t.redistribute(dst.device_mesh, want).to_local()
+    for d, td in enumerate(dims):
+        if td is not None and shape[d] != dst.shape[d]:
+            t = t.narrow(td, offset[d], shape[d])
+    return t
+
+
+def _write_shard_(dst: DTensor, slots, values, *, per_row: bool) -> None:
+    """`write_rows_` / `write_columns_` on this rank's shard of `dst`:
+    the rows it holds take their values.  Where the slot dimension is
+    whole on the rank, that is the plain write on the local tensors.
+    Where it is split, a slot outside this rank's part is left as it is
+    (the rank that holds it writes it): the slot indices are clamped
+    into the shard and the write masked, so no index leaves it."""
+    local = dst.to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, dst.device_mesh, dst.placements)
+    n_rows, n_slots = local.shape[:2]
+    # values' dimension for each of dst's: one slot a row drops dim 1.
+    dims = [0, None] + [d - 1 if per_row else d
+                        for d in range(2, dst.ndim)]
+    vals = _as_shard(values, dst, dims, shape, offset)
+    if isinstance(slots, slice):
+        if not _split(dst, 1):
+            local[:, slots] = vals
+            return
+        slots = torch.arange(slots.start or 0, slots.stop,
+                             device=local.device)
+    if per_row:
+        at = _as_shard(slots, dst, [0] + [None] * (dst.ndim - 1), shape,
+                       offset)
+        r = torch.arange(n_rows, device=local.device)
+        if not _split(dst, 1):
+            local.index_put_((r, at), vals)
+            return
+        at = at.long() - offset[1]
+        inside = (at >= 0) & (at < n_slots)
+        at = at.clamp(0, n_slots - 1)
+        keep = inside.view(n_rows, *[1] * (vals.ndim - 1))
+        local[r, at] = torch.where(keep, vals, local[r, at])
+        return
+    if not _split(dst, 1):
+        local[:, slots] = vals
+        return
+    # The same slots for every row: each slot of the shard takes the
+    # last value written to it (the highest index, as a sequential
+    # write leaves it), or keeps its own.
+    at = slots.long() - offset[1]
+    inside = (at >= 0) & (at < n_slots)
+    at = at.clamp(0, n_slots - 1)
+    ids = torch.arange(at.shape[0], device=local.device)
+    owner = torch.full((n_slots,), -1, dtype=torch.long,
+                       device=local.device).scatter_reduce_(
+        0, at, torch.where(inside, ids, -1), "amax")
+    hit = (owner >= 0).view(1, n_slots, *[1] * (local.ndim - 2))
+    local.copy_(torch.where(hit, vals.index_select(1, owner.clamp(min=0)),
+                            local))
 
 
 # ---------------------------------------------------------------------------

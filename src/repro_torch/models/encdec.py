@@ -24,7 +24,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        logical_constraint, norm_spec, remat,
-                                       stack_specs, tree_unbind)
+                                       stack_specs, take_rows,
+                                       token_positions, tree_unbind,
+                                       write_columns_)
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -142,9 +144,9 @@ class EncDecLM:
         enc = self.encode(params, batch["frames"], rules)
         tokens = batch["tokens"].long()
         b, s = tokens.shape
-        x = params["embed"][tokens]
+        x = take_rows(params["embed"], tokens)
         x = x + params["dec_pos"][:s][None].to(x.dtype)
-        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        pos = token_positions(tokens)
         causal = attn.make_mask(pos, pos)
         xs_full = torch.ones((b, s, enc.shape[1]), dtype=torch.bool,
                              device=x.device)
@@ -211,7 +213,7 @@ class EncDecLM:
         cfg = self.cfg
         idx = cache["index"]
         b = tokens.shape[0]
-        x = params["embed"][tokens.long()]
+        x = take_rows(params["embed"], tokens.long())
         at = min(max(int(idx), 0), params["dec_pos"].shape[0] - 1)
         x = x + params["dec_pos"][at:at + 1][None].to(x.dtype)
         pos = torch.full((b, 1), idx, dtype=torch.long, device=x.device)
@@ -226,8 +228,9 @@ class EncDecLM:
             y = apply_norm(x, lp["ln1"], cfg.norm)
             kq = torch.einsum("bsd,dhk->bshk", y, lp["self_attn"]["wk"])
             vq = torch.einsum("bsd,dhk->bshk", y, lp["self_attn"]["wv"])
-            sk[:, write:write + 1] = kq.to(sk.dtype)
-            sv[:, write:write + 1] = vq.to(sv.dtype)
+            span = slice(write, write + 1)
+            write_columns_(sk, span, kq.to(sk.dtype))
+            write_columns_(sv, span, vq.to(sv.dtype))
             x = x + _mha_cached(y, lp["self_attn"], self_mask, sk, sv)
             y = apply_norm(x, lp["ln_x"], cfg.norm)
             x = x + _mha_cached(y, lp["cross_attn"], cross_mask,

@@ -45,7 +45,9 @@ from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
                                        norm_spec, remat, stack_specs,
-                                       tree_index, tree_unbind)
+                                       take_rows, token_positions,
+                                       tree_index, tree_unbind,
+                                       write_columns_, write_rows_)
 from repro_torch.models.moe import moe_ffn
 
 REMAT_POLICIES = ("none", "save_boundaries", "full", "dots")
@@ -263,11 +265,10 @@ def _ring_write(cache, k, v, pos):
     sequences (continuous batching) coexist.  Writes `cache` in place."""
     slots = cache["k"].shape[1]
     write_at = pos[:, 0].long() % slots                            # (B,)
-    rows = torch.arange(k.shape[0], device=k.device)
-    cache["k"].index_put_((rows, write_at), k[:, 0].to(cache["k"].dtype))
-    cache["v"].index_put_((rows, write_at), v[:, 0].to(cache["v"].dtype))
-    cache["kv_pos"].index_put_((rows, write_at),
-                               pos[:, 0].to(cache["kv_pos"].dtype))
+    write_rows_(cache["k"], write_at, k[:, 0].to(cache["k"].dtype))
+    write_rows_(cache["v"], write_at, v[:, 0].to(cache["v"].dtype))
+    write_rows_(cache["kv_pos"], write_at,
+                pos[:, 0].to(cache["kv_pos"].dtype))
 
 
 def _prefill_write(cache, k, v, pos, slot_idx):
@@ -279,10 +280,10 @@ def _prefill_write(cache, k, v, pos, slot_idx):
     cache["k"].zero_()
     cache["v"].zero_()
     cache["kv_pos"].fill_(-1)
-    cache["k"][:, at] = k[:, -take:].to(cache["k"].dtype)
-    cache["v"][:, at] = v[:, -take:].to(cache["v"].dtype)
-    cache["kv_pos"][:, at] = pos[:, -take:].expand(b, take).to(
-        cache["kv_pos"].dtype)
+    write_columns_(cache["k"], at, k[:, -take:].to(cache["k"].dtype))
+    write_columns_(cache["v"], at, v[:, -take:].to(cache["v"].dtype))
+    write_columns_(cache["kv_pos"], at,
+                   pos[:, -take:].expand(b, take).to(cache["kv_pos"].dtype))
 
 
 def _gqa_forward(x, p, cfg: ModelConfig, positions, *, window, theta,
@@ -520,7 +521,7 @@ class TransformerLM:
             tokens = batch["tokens"].long()
             v = params["embed"].shape[0]
             tokens = torch.where(tokens < 0, tokens + v, tokens)
-            x = params["embed"][tokens.clamp(0, v - 1)]
+            x = take_rows(params["embed"], tokens.clamp(0, v - 1))
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                                  device=x.device)
@@ -529,11 +530,9 @@ class TransformerLM:
     def _positions(self, batch, start=0):
         tokens = batch.get("tokens")
         src = tokens if tokens is not None else batch["embeds"]
-        b, s = src.shape[:2]
         pos = batch.get("positions")
         if pos is None:
-            pos = torch.arange(start, start + s, device=src.device)[None]
-            pos = pos.expand(b, s)
+            pos = token_positions(src, start)
         out = {"pos": pos}
         if self.cfg.mrope_sections:
             mr = batch.get("mrope_positions")
@@ -671,12 +670,10 @@ class TransformerLM:
         own position (continuous batching); otherwise all sequences share
         the global `index` cursor.  The cache is updated in place.
         """
-        b = tokens.shape[0]
         if "slot_pos" in cache:
             pos = cache["slot_pos"][:, None].long()
         else:
-            pos = torch.full((b, 1), cache["index"], dtype=torch.long,
-                             device=tokens.device)
+            pos = torch.full_like(tokens, cache["index"], dtype=torch.long)
         batch = {"tokens": tokens, "positions": pos}
         logits, new_cache = self._run_cached(params, batch, cache, rules, 1)
         if "slot_pos" in cache:

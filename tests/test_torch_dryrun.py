@@ -7,10 +7,12 @@ reference's, on the CPU.
   traced cell at `smoke()` size on an 8-way (2, 2, 2) mesh (the
   reference's mini dry run, tests/launch/test_launch.py) has every key
   the roofline reads, with `argument_bytes` equal to the sum of the
-  reference's shard-shape bytes (the reference's side in a subprocess
-  with 8 forced host devices) and its traced figures under the
-  upper-bound keys; on a 1 x 1 mesh the argument bytes equal the bytes
-  of the tensors a step holds, and the traced figures are the device's;
+  reference's shard-shape bytes and to XLA's `memory_analysis()`, and
+  its per-device peak within PEAK_TO_REF of XLA's (the reference's side
+  in a subprocess with 8 forced host devices), all under the
+  reference's keys (the trace is partitioned over the mesh); on a
+  1 x 1 mesh the argument bytes equal the bytes of the tensors a step
+  holds, and the plain trace is the device's;
 * the trace: FLOPs equal FlopCounterMode's; the one-layer-per-kind
   shortcut's operations, FLOPs, bytes and matrix products equal the
   whole-depth trace for every arch and step kind, and its estimated peak
@@ -120,9 +122,10 @@ REF_MINI = textwrap.dedent("""
     import jax, jax.numpy as jnp
     jax.devices()
     from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro import optim
     from repro.configs import get_config
     from repro.launch import train as train_lib
-    from repro.launch.dryrun import _shape_rules
+    from repro.launch.dryrun import _n_micro, _shape_rules
     from repro.launch.mesh import make_mesh
     from repro.launch.shapes import ShapeSpec, batch_shardings, input_specs
     from repro.models.registry import build
@@ -143,10 +146,41 @@ REF_MINI = textwrap.dedent("""
         sh = train_lib.state_shardings(model.param_specs(), rules, mesh)
         b = input_specs(cfg, shape)
         bs = batch_shardings(cfg, shape, mesh, rules)
-        out[arch] = (nbytes(jax.tree.leaves(st), jax.tree.leaves(sh))
-                     + nbytes([b[k] for k in b], [bs[k] for k in b]))
+        # The reference dry run's train cell (launch/dryrun.py lower_cell)
+        # at this shape: XLA's memory_analysis() and cost_analysis().
+        with (jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh):
+            step = train_lib.make_train_step(
+                model, cfg, rules, optim.AdamWConfig(),
+                n_micro=_n_micro(cfg, shape, mesh))
+            co = jax.jit(step, in_shardings=(sh, bs),
+                         out_shardings=(sh, None),
+                         donate_argnums=(0,)).lower(st, b).compile()
+        ma = co.memory_analysis()
+        ca = co.cost_analysis() or {{}}
+        ca = ca[0] if isinstance(ca, list) else ca
+        out[arch] = {{
+            "shard_bytes": (nbytes(jax.tree.leaves(st), jax.tree.leaves(sh))
+                            + nbytes([b[k] for k in b], [bs[k] for k in b])),
+            "memory": {{
+                "argument_bytes": int(ma.argument_size_in_bytes),
+                "output_bytes": int(ma.output_size_in_bytes),
+                "temp_bytes": int(ma.temp_size_in_bytes),
+                "alias_bytes": int(ma.alias_size_in_bytes),
+                "peak_per_device_gib": round(
+                    (ma.argument_size_in_bytes + ma.output_size_in_bytes
+                     + ma.temp_size_in_bytes - ma.alias_size_in_bytes)
+                    / 2**30, 3)}},
+            "cost": {{"flops": float(ca.get("flops", 0.0)),
+                      "bytes_accessed": float(ca.get("bytes accessed",
+                                                     0.0))}}}}
     print(json.dumps(out))
 """)
+# The port's per-device peak over XLA's on the mini cells, measured on
+# the CPU first: 1.071 gemma3, 0.770 rwkv6, 0.659 deepseek-v2-lite
+# (smoke() size, PERF.md §6); the band holds it within 0.5-2x of XLA's.
+PEAK_TO_REF = (0.5, 2.0)
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
+               "alias_bytes", "peak_per_device_gib"}
 
 
 @pytest.fixture(scope="module")
@@ -163,34 +197,41 @@ def mini_records():
 @pytest.mark.parametrize("arch", MINI)
 def test_traced_mini_cell(arch, mini_records):
     port, ref = mini_records
-    rec = port[arch]
+    rec, xla = port[arch], ref[arch]
     assert port["cuda"] is False
     assert rec["status"] == "OK" and rec["n_micro"] >= 1
     assert rec["trace_mode"] == "full"
-    # The model axis splits what the trace holds whole: the traced
-    # figures are upper bounds, under keys of their own.
-    assert rec["trace_scope"] == "data_shard"
+    # The model axis and FSDP split the step: the trace is partitioned,
+    # and its figures are the device's, under the reference's keys.
+    assert (rec["trace_scope"], rec["partitioned"]) == ("device", True)
     mem, cost = rec["memory"], rec["cost"]
-    assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
-                        "alias_bytes", "peak_per_device_gib",
-                        "output_bytes_upper", "temp_bytes_upper",
-                        "peak_upper_gib"}
-    assert mem["argument_bytes"] == ref[arch]
-    assert (mem["output_bytes"], mem["temp_bytes"],
-            mem["peak_per_device_gib"]) == (None, None, None)
+    assert set(mem) == set(xla["memory"]) == MEMORY_KEYS
+    assert set(cost) == set(xla["cost"]) == {"flops", "bytes_accessed"}
+    assert mem["argument_bytes"] == xla["shard_bytes"] == \
+        xla["memory"]["argument_bytes"]
     assert mem["alias_bytes"] < mem["argument_bytes"] < \
-        mem["argument_bytes"] + mem["temp_bytes_upper"]
-    assert mem["output_bytes_upper"] > mem["alias_bytes"]
-    assert mem["peak_upper_gib"] > mem["argument_bytes"] / 2**30 > 0
-    assert (cost["flops"], cost["bytes_accessed"]) == (None, None)
-    assert cost["flops_upper"] > 0 and cost["bytes_accessed_upper"] > 0
+        mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["output_bytes"] > mem["alias_bytes"]
+    assert mem["peak_per_device_gib"] > 0
+    peak = (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+            - mem["alias_bytes"])
+    x = xla["memory"]
+    ref_peak = (x["argument_bytes"] + x["output_bytes"] + x["temp_bytes"]
+                - x["alias_bytes"])
+    print(f"{arch}: peak {peak} bytes, XLA's {ref_peak} "
+          f"(ratio {peak / ref_peak:.3f}); flops {cost['flops']:.4e}, "
+          f"XLA's {xla['cost']['flops']:.4e}")
+    assert PEAK_TO_REF[0] <= peak / ref_peak <= PEAK_TO_REF[1]
+    assert cost["flops"] > 0 and cost["bytes_accessed"] > 0
     assert rec["collectives"]["total"] > 0
+    assert rec["collectives_traced"]["total"] > 0
     assert rec["remat_dup"] == 1.0        # smoke configs: remat "none"
     full = {**rec, "arch": arch, "shape": "train_4k", "mesh": "2x16x16",
             "kind": "train"}
     row = roofline.analyze_cell(full)      # every key the roofline reads
-    assert row["peak_gib"] is None and row["hlo_raw_flops"] is None
-    assert "| None |" in roofline.to_markdown([row], [])
+    assert row["peak_gib"] == mem["peak_per_device_gib"] > 0
+    assert row["hlo_raw_flops"] == cost["flops"] > 0
+    assert "| None |" not in roofline.to_markdown([row], [])
 
 
 def _held(*trees):
@@ -214,9 +255,10 @@ def test_argument_bytes_equal_the_tensors_a_step_holds():
              for k in ("tokens", "labels")}
     assert rec["memory"]["argument_bytes"] == _held(state, batch)
     assert rec["n_micro"] == 1 and rec["trace_scope"] == "device"
+    assert rec["partitioned"] is False     # the plain trace is the device's
     assert rec["memory"]["temp_bytes"] > 0 and rec["cost"]["flops"] > 0
-    assert not any(k.endswith(("_upper", "_upper_gib"))
-                   for k in {**rec["memory"], **rec["cost"]})
+    assert set(rec["memory"]) == MEMORY_KEYS
+    assert set(rec["cost"]) == {"flops", "bytes_accessed"}
     train.make_train_step(model, cfg, None, optim.AdamWConfig())(state,
                                                                  batch)
     rec = dryrun.lower(cfg, ShapeSpec("card_decode", 64, 4, "decode"), mesh)
@@ -285,9 +327,10 @@ def test_shortcut_is_decided_by_the_operation_count(monkeypatch):
 
 
 def test_records_say_which_trace_ran(tmp_path, monkeypatch):
-    """A written record keeps "trace_mode" and "trace_scope"; a
-    production mesh's traced figures are upper bounds, and the report
-    prints no peak for it."""
+    """A written record keeps "trace_mode", "trace_scope" and
+    "partitioned"; a production mesh's trace is partitioned, its figures
+    the device's under the reference's keys, and the report prints its
+    peak."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda arch: get_config(arch, smoke=True))
     (rec,) = dryrun.run_cells(["gemma3-1b"], ["decode_32k"], [False],
@@ -295,12 +338,16 @@ def test_records_say_which_trace_ran(tmp_path, monkeypatch):
     (path,) = tmp_path.glob("*.json")
     written = json.loads(path.read_text())
     assert written == json.loads(json.dumps(rec))
-    assert (written["trace_mode"], written["trace_scope"]) == \
-        ("full", "data_shard")
+    assert (written["trace_mode"], written["trace_scope"],
+            written["partitioned"]) == ("full", "device", True)
     assert "trace" not in written
-    assert written["memory"]["peak_per_device_gib"] is None
-    assert written["memory"]["peak_upper_gib"] > 0
-    assert roofline.analyze_cell(written)["peak_gib"] is None
+    assert set(written["memory"]) == MEMORY_KEYS
+    assert set(written["cost"]) == {"flops", "bytes_accessed"}
+    assert written["memory"]["peak_per_device_gib"] > 0
+    assert written["cost"]["flops"] > 0
+    assert written["collectives_traced"]["total"] > 0
+    assert roofline.analyze_cell(written)["peak_gib"] == \
+        written["memory"]["peak_per_device_gib"]
 
 
 def test_layer_kinds_and_depth_configs():
