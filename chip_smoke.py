@@ -135,8 +135,11 @@ Phases, each fatal on failure:
      buffers; values are not checked, memory is): the predicted
      argument bytes equal to the bytes of the local tensors the card
      holds, and the predicted peak over torch.cuda.max_memory_allocated()
-     inside PEAK_BAND, with collectives_traced beside collectives and
-     the host seconds, run after (b) while (c) goes on;
+     inside PEAK_BAND, the traced all-gather bytes a microbatch (train),
+     a layer (mistral's scanned layers) or a step at most GATHER_OVER_REF
+     times the reference's XLA program's (REF_ALL_GATHER), with
+     collectives_traced beside collectives and the host seconds, run
+     after (b) while (c) goes on;
 then one JSON line of kernels, the nvidia-smi line, and the final JSON
 line.
 
@@ -2814,6 +2817,17 @@ PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25)}
 # 11e: cells run as rank 0 of the 16 x 16 mesh on the card.
 RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("mistral-large-123b", "decode_32k"))
+# 11e: the reference's all-gather bytes for those cells, from XLA's
+# compiled HLO (`repro.launch.dryrun.lower_cell` on 16x16, 512 CPU
+# placeholder devices, jax 0.9.0; PERF.md §6).  XLA's HLO holds a
+# loop's body once: gemma3's train_4k figure is one microbatch (and the
+# update), mistral's one of its 88 scanned layers; gemma3's decode has
+# no loop.  The port's traced all-gather, divided likewise, may exceed
+# it by GATHER_OVER_REF at most.
+REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
+                  ("gemma3-1b", "decode_32k"): 2_508_893_696,
+                  ("mistral-large-123b", "decode_32k"): 2_589_298_688}
+GATHER_OVER_REF = 1.25
 DRYRUN_OUT = os.path.join("build", "dryrun")
 DRYRUN_SUMMARY = re.compile(r"== dry-run: (\d+) OK, (\d+) LOWERED, "
                             r"(\d+) SKIP, (\d+) FAIL of (\d+) cells ==")
@@ -3100,6 +3114,15 @@ def rank0_on_card(smi):
                  f"max_memory_allocated() {peak} = {ratio:.4f}, outside "
                  f"{lo}-{hi}")
         traced, implied = rec["collectives_traced"], rec["collectives"]
+        per, unit = ((rec["n_micro"], "microbatch") if shape.kind == "train"
+                     else (cfg.num_layers, "layer") if cfg.scan_layers
+                     else (1, "step"))
+        gather = traced.get("all-gather", 0.0) / per
+        limit = GATHER_OVER_REF * REF_ALL_GATHER[arch, shape_name]
+        if gather > limit:
+            fail(f"11e {arch} {shape_name}: traced all-gather {gather:.0f} "
+                 f"bytes a {unit}, above {GATHER_OVER_REF} x the "
+                 f"reference's {REF_ALL_GATHER[arch, shape_name]}")
         print(f"11e {arch} {shape_name}, rank 0 of 16x16 "
               f"({rec['trace_mode']} partitioned trace, "
               f"{rec.get('n_micro', 1)} microbatch(es) on the host, one on "
@@ -3116,6 +3139,9 @@ def rank0_on_card(smi):
               f"({ {k: v for k, v in traced.items() if k != 'total'} }) "
               f"beside collectives total {implied['total']:.4e} "
               f"({ {k: v for k, v in implied.items() if k != 'total'} }); "
+              f"traced all-gather {gather:.0f} bytes a {unit}, "
+              f"{gather / REF_ALL_GATHER[arch, shape_name]:.4f} x the "
+              f"reference's XLA program (limit {GATHER_OVER_REF}); "
               f"host {host_s:.3f} s to trace, {run_s:.3f} s to run on the "
               f"card; card={smi}")
 

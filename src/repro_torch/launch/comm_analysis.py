@@ -18,12 +18,26 @@ shape, not ring traffic):
                   to its shard once per microbatch;
   all-reduce      training: the gradient of a parameter replicated over
                   the data axes, when there is more than one data shard;
-                  decode: the partial attention output of every cache
-                  leaf whose sequence is split (one new token's row, in
-                  float32, per layer), and the residual-stream combine of
-                  every row-parallel weight (its input dimension split
-                  over a model axis: one new token's output row per
-                  sequence, per layer).
+                  decode: the residual-stream combine of every
+                  row-parallel weight (its input dimension split over a
+                  model axis: one new token's output row per sequence,
+                  per layer), and, for an attention cache whose
+                  sequence is split and which is scored whole (no
+                  longer than `kv_chunk`), the partial-softmax combine
+                  of its value-side leaf (one new token's row, in
+                  float32, per layer; k and v share it);
+  all-gather      decode, too: an attention cache whose sequence is
+                  split and which is scored in chunks (longer than
+                  `kv_chunk`, which divides it) is cast to float32 and
+                  gathered whole over its sequence once a layer, k and v
+                  each, at the device's batch, before the chunk loop.
+
+That is what the reference's partitioned HLO holds for these cells
+(`hlo_analysis.collective_bytes`): XLA combines a cache it scores whole
+and gathers one it scans in chunks, hoisted out of the scan.  MLA's
+chunked decode is not counted: XLA moves its expanded keys and values
+from the sequence to the heads (an all-to-all), which the latent
+cache's placements do not give (the port gathers the latent instead).
 
 The dict keeps the reference's schema: bytes per op kind, "total", and
 "<op>_count".  `remat_duplication` is the ratio of matrix products
@@ -51,10 +65,11 @@ MATMUL_OPS = frozenset({"aten::mm", "aten::bmm", "aten::addmm",
 # The step's compute dtype (bf16) and the partial results' (float32).
 COMPUTE_BYTES, PARTIAL_BYTES = 2, 4
 
-# Cache leaves whose split sequence needs a partial-softmax combine, by
-# their rank unstacked: the value-side leaf of each attention cache (k
-# and v share one combine).
+# Attention cache leaves by their rank unstacked: the value-side leaf of
+# each cache carries the combine (k and v share it); the key and value
+# leaves are gathered for a chunked decode (MLA's latent cache is not).
 _COMBINE_KEYS = {"v": 4, "c_kv": 3, "self_v": 4}
+_GATHER_KEYS = {"k": 4, "v": 4, "self_k": 4, "self_v": 4}
 
 
 def _input_dim(axes) -> Optional[int]:
@@ -69,13 +84,15 @@ def _input_dim(axes) -> Optional[int]:
 
 def collective_bytes(kind: str, param_specs, rules: Mapping[str, Any], mesh,
                      *, tokens: int, n_micro: int = 1, cache=None,
-                     cache_shardings=None) -> Dict[str, float]:
+                     cache_shardings=None,
+                     kv_chunk: Optional[int] = None) -> Dict[str, float]:
     """Per-device result bytes of each collective kind one step implies.
 
     `param_specs` is the model's ParamSpec tree and `rules` the cell's
     logical-axis rules; `tokens` the tokens one device processes per pass
     (decode: its sequences); `cache`/`cache_shardings` the decode cache
-    (meta tensors) and its shardings.
+    (meta tensors) and its shardings; `kv_chunk` the chunk its decode
+    attention scans the cache in (None: scored whole).
     """
     out: Dict[str, float] = defaultdict(float)
     counts: Dict[str, int] = defaultdict(int)
@@ -111,7 +128,7 @@ def collective_bytes(kind: str, param_specs, rules: Mapping[str, Any], mesh,
 
     if kind == "decode" and cache is not None:
         for key, leaf, sh in _cache_leaves(cache, cache_shardings):
-            rank = _COMBINE_KEYS.get(key)
+            rank = _GATHER_KEYS.get(key, _COMBINE_KEYS.get(key))
             if rank is None or leaf.ndim not in (rank, rank + 1):
                 continue
             seq = 1 + (leaf.ndim - rank)            # (L,) B, S, ...
@@ -121,8 +138,15 @@ def collective_bytes(kind: str, param_specs, rules: Mapping[str, Any], mesh,
             row = list(sh.shard_shape(leaf.shape))
             layers = row[0] if leaf.ndim == rank + 1 else 1
             row = row[seq - 1:]
-            row[1] = 1                              # one new token
-            add("all-reduce", math.prod(row) * PARTIAL_BYTES, layers)
+            slots = leaf.shape[seq]
+            if kv_chunk and slots > kv_chunk and not slots % kv_chunk:
+                if key in _GATHER_KEYS:
+                    row[1] = slots                  # the sequence whole
+                    add("all-gather", math.prod(row) * PARTIAL_BYTES,
+                        layers)
+            elif key in _COMBINE_KEYS:
+                row[1] = 1                          # one new token
+                add("all-reduce", math.prod(row) * PARTIAL_BYTES, layers)
 
     total = dict(out)
     total["total"] = float(sum(out.values()))

@@ -129,9 +129,10 @@ def _shape_rules(rules: Dict[str, Any], shape: ShapeSpec, mesh, cfg
         rules["batch"] = None
     if shape.kind in ("decode", "prefill"):
         # Shard the KV cache over the model axis: heads when they divide it,
-        # otherwise the sequence dimension (flash-decode style; GSPMD
-        # inserts the partial-softmax combine).  MLA's latent cache has no
-        # heads dimension, so it always seq-shards.
+        # otherwise the sequence dimension.  GSPMD combines the partial
+        # softmax of a cache scored whole and gathers one scanned in
+        # chunks, once a layer (`comm_analysis`).  MLA's latent cache has
+        # no heads dimension, so it always seq-shards.
         if (cfg.mixer == "mla" or rules.get("cache_heads") != "model") \
                 and rules.get("cache_seq") is None:
             rules["cache_seq"] = "model"
@@ -359,6 +360,33 @@ COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                "all_to_all_single": "all-to-all"}
 
 
+# Set by `sites()`: one entry per trace run meanwhile.
+_SITES: Optional[list] = None
+
+
+@contextlib.contextmanager
+def sites():
+    """While active, every trace keeps where in the port's code each
+    collective it dispatched came from (kind, dtype, result shape and
+    the two innermost frames of the port) and where its peak was
+    reached, with the largest storages then live.  Yields the list of
+    one entry per trace (`--sites`)."""
+    global _SITES
+    kept, _SITES = _SITES, []
+    try:
+        yield _SITES
+    finally:
+        _SITES = kept
+
+
+def _site() -> str:
+    here = [f for f in traceback.extract_stack()
+            if "repro_torch" in f.filename
+            and not f.filename.endswith("dryrun.py")]
+    return " <- ".join(f"{f.filename.rsplit('repro_torch/', 1)[1]}:"
+                       f"{f.lineno}" for f in reversed(here[-2:]))
+
+
 class _Trace(TorchDispatchMode):
     """Counts, over the ops dispatched on this device while it is active:
     the ops, FLOPs (by FlopCounterMode's formulas), bytes read and
@@ -385,6 +413,9 @@ class _Trace(TorchDispatchMode):
         self.live = self.peak = 0
         self.ops = self.flops = self.bytes = self.matmuls = 0
         self.collectives: Counter = Counter()
+        self.largest: Counter = Counter()     # kind -> largest result
+        self.sites: Optional[Counter] = None if _SITES is None else Counter()
+        self.peak_site = ""
         self.holders: Dict[int, list] = {}   # storage -> [tensors, bytes]
 
     def _release(self, key: int) -> None:
@@ -401,6 +432,10 @@ class _Trace(TorchDispatchMode):
                 return                           # an argument's storage
             self.holders[key] = [0, t.untyped_storage().nbytes()]
             self.live += self.holders[key][1]
+            if self.live > self.peak and self.sites is not None:
+                big = sorted((h[1] for h in self.holders.values()),
+                             reverse=True)[:3]
+                self.peak_site = f"{_site()} (largest live {big})"
             self.peak = max(self.peak, self.live)
         self.holders[key][0] += 1
         weakref.finalize(t, self._release, key)
@@ -431,8 +466,13 @@ class _Trace(TorchDispatchMode):
             self.matmuls += 1
         kind = COLLECTIVES.get(name.partition("::")[2])
         if kind is not None:
-            self.collectives[kind] += sum(_nbytes(o) for o in outs)
+            nbytes = sum(_nbytes(o) for o in outs)
+            self.collectives[kind] += nbytes
             self.collectives[kind + "_count"] += 1
+            self.largest[kind] = max(self.largest[kind], nbytes)
+            if self.sites is not None:
+                self.sites[kind, outs[0].dtype, tuple(outs[0].shape),
+                           _site()] += 1
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
@@ -483,7 +523,7 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
 
     Returns the `_ADDITIVE` counts, the peak and the collectives:
     "micro" parts are forward and backward (train) or the serving step,
-    "once" the update."""
+    "once" the update; "coll_largest" the largest result of each kind."""
     model = build(cfg)
     specs = model.param_specs()
     tr = _Trace(torch.device(device).type)
@@ -540,11 +580,15 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
             micro = (tr.flops, tr.bytes, Counter(tr.collectives))
             outputs = [logits]
         out_bytes = sum(_nbytes(_local(t)) for t in outputs)
+    if tr.sites is not None:
+        _SITES.append({"kind": kind, "layers": cfg.num_layers,
+                       "peak": tr.peak, "peak_site": tr.peak_site,
+                       "collectives": tr.sites})
     return {"flops_micro": micro[0], "flops_once": tr.flops - micro[0],
             "bytes_micro": micro[1], "bytes_once": tr.bytes - micro[1],
             "coll_micro": micro[2], "coll_once": tr.collectives - micro[2],
-            "ops": tr.ops, "matmuls": tr.matmuls, "peak": tr.peak,
-            "out_bytes": out_bytes}
+            "coll_largest": tr.largest, "ops": tr.ops,
+            "matmuls": tr.matmuls, "peak": tr.peak, "out_bytes": out_bytes}
 
 
 def _first_micro(batch: Dict[str, torch.Tensor], n_micro: int
@@ -658,6 +702,7 @@ def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
             total[key] = Counter({
                 c: total[key][c] + (n - 1) * (more[key][c] - cost[key][c])
                 for c in set(total[key]) | set(more[key])})
+        total["coll_largest"] = total["coll_largest"] | more["coll_largest"]
         # Training keeps each layer's boundary and gradients, so its peak
         # grows with depth; a serving step frees each layer's work.
         total["peak"] = (total["peak"] + (n - 1) * (more["peak"]
@@ -793,9 +838,11 @@ def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
     }
     tokens = math.prod(b_shard["tokens"].shard_shape(inputs["tokens"].shape)
                        if partitioned else inputs["tokens"].shape)
+    # hymba's and the encoder-decoder's decode attention take no chunk.
     result["collectives"] = collective_bytes(
         shape.kind, specs, rules, mesh, tokens=tokens, n_micro=n_micro,
-        cache=cache, cache_shardings=c_shard)
+        cache=cache, cache_shardings=c_shard,
+        kv_chunk=cfg.attn_kv_chunk if cfg.mixer == "gqa" else None)
     result["collectives_traced"] = _collective_record(cost, n_micro)
     result["remat_dup"] = round(remat_dup, 3)
     result["status"] = "OK"
@@ -888,14 +935,27 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--no-compile", action="store_true")
+    ap.add_argument("--sites", type=int, default=0, metavar="N",
+                    help="print, for each trace, the N collective sites "
+                         "with the most bytes and where its peak was")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
-    results = run_cells(archs, shapes, meshes, args.out_dir,
-                        compile_=not args.no_compile)
+    with sites() if args.sites else contextlib.nullcontext() as kept:
+        results = run_cells(archs, shapes, meshes, args.out_dir,
+                            compile_=not args.no_compile)
+    for t in kept or ():
+        print(f"sites: {t['kind']} trace of {t['layers']} layers, peak "
+              f"{t['peak']} B at {t['peak_site']}")
+        by_bytes = sorted(t["collectives"].items(), key=lambda kv: -kv[1]
+                          * math.prod(kv[0][2]) * kv[0][1].itemsize)
+        for (kind, dtype, shape, where), n in by_bytes[:args.sites]:
+            nbytes = n * math.prod(shape) * dtype.itemsize
+            print(f"  {kind:14s} {n:5d} x {str(dtype)[6:]}{list(shape)} = "
+                  f"{nbytes} B  {where}")
     n_ok = sum(r["status"] == "OK" for r in results)
     n_low = sum(r["status"] == "LOWERED" for r in results)
     n_skip = sum(r["status"] == "SKIP" for r in results)

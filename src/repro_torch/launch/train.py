@@ -25,6 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch import optim
 from repro_torch.configs import get_config
@@ -32,11 +35,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, DataLoader
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import MeshSharding
-from repro_torch.models.common import (DEFAULT_RULES, init_params,
+from repro_torch.models.common import (DEFAULT_RULES, init_params, is_split,
                                        logical_constraint, param_sharding,
-                                       param_shapes,
-                                       tree_leaves, tree_map,
-                                       tree_unflatten)
+                                       param_shapes, reduce_over,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.registry import build
 
 Pytree = Any
@@ -87,21 +89,82 @@ def state_shardings(specs, rules, mesh) -> optim.AdamWState:
 # ---------------------------------------------------------------------------
 
 
+class _VocabSplitNLL(torch.autograd.Function):
+    """-log softmax(x)[label] and logsumexp(x) of each row of float32
+    logits `x` (B, S, V), a DTensor whose vocab dimension is split, on
+    each rank's own columns: the row max, the sum of exponentials and
+    the label's logit (on the rank that holds it) are each all-reduced
+    over the vocab's axes, so no rank holds a whole row.  The backward
+    writes softmax - onehot into each rank's columns and moves nothing.
+    Returns (nll, lse), (B, S) DTensors split as the rows are."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        mesh, places, vdim = logits.device_mesh, logits.placements, 2
+        rows = [Replicate() if p.is_shard() and p.dim == vdim else p
+                for p in places]
+        x = logits.to_local()
+        at = labels.redistribute(mesh, rows).to_local() - \
+            compute_local_shape_and_global_offset(
+                logits.shape, mesh, places)[1][vdim]
+        inside = (at >= 0) & (at < x.shape[vdim])
+        at = at.clamp(0, x.shape[vdim] - 1)
+
+        def over(t, op):
+            return reduce_over(t, logits, vdim, op)
+
+        m = over(x.amax(dim=vdim), "max")
+        lse = m + torch.log(over(torch.exp(x - m[..., None]).sum(dim=vdim),
+                                 "sum"))
+        picked = torch.gather(x, vdim, at[..., None])[..., 0]
+        picked = over(torch.where(inside, picked, 0.0), "sum")
+        ctx.save_for_backward(x, lse, at, inside)
+        ctx.meta = (mesh, places, rows, logits.shape, logits.stride())
+
+        def whole(t):
+            return DTensor.from_local(t, mesh, rows, run_check=False,
+                                      shape=labels.shape,
+                                      stride=labels.stride())
+        return whole(lse - picked), whole(lse)
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse):
+        x, lse, at, inside = ctx.saved_tensors
+        mesh, places, rows, shape, stride = ctx.meta
+
+        def local(g):
+            return (torch.zeros_like(lse) if g is None
+                    else g.redistribute(mesh, rows).to_local())
+
+        g_nll, g_lse = local(g_nll), local(g_lse)
+        grad = torch.exp(x - lse[..., None]) * (g_nll + g_lse)[..., None]
+        grad.scatter_add_(2, at[..., None],
+                          torch.where(inside, -g_nll, 0.0)[..., None])
+        return DTensor.from_local(grad, mesh, places, run_check=False,
+                                  shape=shape, stride=stride), None
+
+
 def lm_loss(model, params, batch, rules) -> Tuple[torch.Tensor, Dict]:
     logits, aux = model.forward(params, batch, rules)
     labels = batch["labels"].long()
-    ls = torch.log_softmax(logits.float(), dim=-1)
-    # -ls[..., label] as nll_loss picks it (its backward writes one
-    # value a row, where gather's adds into a zeroed (B, S, V) tensor).
-    nll = F.nll_loss(ls.flatten(0, -2), labels.flatten(),
-                     reduction="none").view(labels.shape)
+    lse = None
+    if isinstance(logits, DTensor) and is_split(logits, logits.ndim - 1):
+        nll, lse = _VocabSplitNLL.apply(logits.float(), labels)
+    else:
+        ls = torch.log_softmax(logits.float(), dim=-1)
+        # -ls[..., label] as nll_loss picks it (its backward writes one
+        # value a row, where gather's adds into a zeroed (B, S, V) tensor).
+        nll = F.nll_loss(ls.flatten(0, -2), labels.flatten(),
+                         reduction="none").view(labels.shape)
     if rules is not None:
         # Split as the batch is: the mean's backward then hands the
         # gather's backward a split gradient, not a whole (B, S, V) one.
         nll = logical_constraint(nll, rules, "batch", None)
     loss = nll.mean()
     # z-loss keeps the softmax normalizer bounded at bf16 scale.
-    zl = 1e-4 * torch.square(torch.logsumexp(logits, dim=-1)).mean()
+    if lse is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    zl = 1e-4 * torch.square(lse).mean()
     total = loss + zl + aux
     return total, {"ce": loss, "aux": aux}
 

@@ -6,7 +6,9 @@ All functions are pure functions of tensors; parameters are dict trees
 built from ParamSpecs in transformer.py.  Softmax statistics are computed
 in float32 with the reference's explicit math (NEG_INF scores, `where`
 masking, online softmax over KV chunks), so a masked slot (kv_pos = -1)
-or a fully masked chunk contributes exactly zero.
+or a fully masked chunk contributes exactly zero.  A DTensor cache whose
+slots are split (decode on a mesh) runs the program the reference's XLA
+compiles for it, on each rank's local tensors (`_attention_split_slots`).
 """
 from __future__ import annotations
 
@@ -15,8 +17,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.common import write_columns_, write_rows_
+from repro_torch.models.common import (contiguous_stride, is_split,
+                                       reduce_over, write_columns_,
+                                       write_rows_)
 
 NEG_INF = -2.0e38
 
@@ -156,7 +161,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q heads {h} not a multiple of kv heads {kh}")
     qg = q.reshape(b, sq, h // kh, kh, d)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if not kv_chunk or k.shape[1] % kv_chunk or k.shape[1] <= kv_chunk:
+    if isinstance(k, DTensor) and is_split(k, 1):
+        o = _attention_split_slots(qg, k, v, mask, scale, softcap, kv_chunk)
+    elif not kv_chunk or k.shape[1] % kv_chunk or k.shape[1] <= kv_chunk:
         o = _attention_plain(qg, k, v, mask, scale, softcap)
     else:
         o = _attention_online(qg, k, v, mask, scale, softcap, kv_chunk)
@@ -210,6 +217,47 @@ def _attention_online(qg, k, v, mask, scale, softcap, kv_chunk):
         m_run = m_new
     o = acc / torch.clamp_min(l_run[..., None], 1e-37)
     return torch.movedim(o, 3, 1)                        # (B,Sq,G,KH,Dv)
+
+
+def _attention_split_slots(qg, k, v, mask, scale, softcap, kv_chunk):
+    """Attention over DTensors whose cache slots are split over mesh
+    axes (decode on a mesh), as the reference's XLA program runs it, on
+    this rank's tensors; returns (B, Sq, G, KH, Dv) float32.
+
+    Chunked (the cache longer than `kv_chunk`, which divides it): k and
+    v are cast to float32 and gathered whole over their slots once a
+    call, before the chunk loop, with the mask; the chunks then run in
+    order on the local tensors.  Whole: each rank scores its own slots
+    and the softmax is combined across the axes (the row max, the
+    denominator and the output each all-reduced)."""
+    mesh = k.device_mesh
+    online = bool(kv_chunk) and not (k.shape[1] % kv_chunk
+                                     or k.shape[1] <= kv_chunk)
+    kp = [Replicate() if online and p.is_shard() and p.dim == 1 else p
+          for p in k.placements]
+    # The queries, the mask and the output go with k's batch and heads.
+    qp = [Shard({0: 0, 2: 3}[p.dim]) if p.is_shard() and p.dim != 1
+          else Replicate() for p in kp]
+    mp = [Shard({0: 0, 1: 2}[p.dim]) if p.is_shard() and p.dim != 2
+          else Replicate() for p in kp]
+    if online:
+        k, v = k.float(), v.float()
+    k_l, v_l = (t.redistribute(mesh, kp).to_local() for t in (k, v))
+    q_l = qg.redistribute(mesh, qp).to_local()
+    mask_l = mask.redistribute(mesh, mp).to_local()
+    if online:
+        o = _attention_online(q_l, k_l, v_l, mask_l, scale, softcap, kv_chunk)
+    else:
+        def over(t, op):
+            return reduce_over(t, k, 1, op)
+        s = _scores(q_l, k_l, scale, softcap)
+        s = torch.where(mask_l[:, None, None], s, NEG_INF)
+        e = torch.exp(s - over(s.amax(dim=-1, keepdim=True), "max"))
+        p = e / over(e.sum(dim=-1, keepdim=True), "sum")
+        o = over(torch.einsum("bghqk,bkhd->bqghd", p, v_l.float()), "sum")
+    shape = (*qg.shape[:4], v.shape[3])
+    return DTensor.from_local(o.contiguous(), mesh, qp, run_check=False,
+                              shape=shape, stride=contiguous_stride(*shape))
 
 
 # ---------------------------------------------------------------------------
@@ -295,15 +343,55 @@ def mla_forward(x: torch.Tensor, p: Dict, positions: torch.Tensor, *,
         new_cache = {}
         c_use, kr_use = c_kv, k_rope
 
+    if isinstance(c_use, DTensor) and is_split(c_use, 1):
+        o = _latent_attention_split(q_nope, q_rope, c_use, kr_use, p, mask,
+                                    qk_nope, qk_rope, kv_chunk)
+    else:
+        o = _latent_attention(q_nope, q_rope, c_use, kr_use, p["w_uk"],
+                              p["w_uv"], mask, qk_nope, qk_rope, kv_chunk)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out, new_cache
+
+
+def _latent_attention(q_nope, q_rope, c, kr, w_uk, w_uv, mask, qk_nope,
+                      qk_rope, kv_chunk):
+    """Attention over keys and values expanded from the latent `c` and
+    the shared rope key `kr`; returns (B, S, H, v_dim)."""
     # Expand keys/values from the latent explicitly, as the reference does.
-    k_nope = torch.einsum("bsc,chk->bshk", c_use, p["w_uk"])
-    v = torch.einsum("bsc,chk->bshk", c_use, p["w_uv"])
+    k_nope = torch.einsum("bsc,chk->bshk", c, w_uk)
+    v = torch.einsum("bsc,chk->bshk", c, w_uv)
     kh = k_nope.shape[2]
-    kr_b = kr_use[:, :, None, :].expand(*kr_use.shape[:2], kh, qk_rope)
+    kr_b = kr[:, :, None, :].expand(*kr.shape[:2], kh, qk_rope)
     k = torch.cat([k_nope, kr_b], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
 
     scale = 1.0 / math.sqrt(qk_nope + qk_rope)
-    o = gqa_attention(q_full, k, v, mask, scale=scale, kv_chunk=kv_chunk)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out, new_cache
+    return gqa_attention(q_full, k, v, mask, scale=scale, kv_chunk=kv_chunk)
+
+
+def _latent_attention_split(q_nope, q_rope, c, kr, p, mask, qk_nope,
+                            qk_rope, kv_chunk):
+    """`_latent_attention` over a DTensor latent cache whose slots are
+    split (decode on a mesh), on each rank's local tensors: the latent
+    and the rope key are gathered whole over their slots once a call
+    (in the cache's dtype), and each rank expands and attends its rows
+    and the heads its weights hold.  (XLA instead expands each device's
+    slots and moves the float32 keys and values to the heads, an
+    all-to-all of about the same bytes, which the partitioned trace
+    could only make a whole gather: ROADMAP Queue 3.)"""
+    mesh = c.device_mesh
+    rows = [q.is_shard() and q.dim == 0 for q in c.placements]
+    heads = [not r and w.is_shard() and w.dim == 1
+             for r, w in zip(rows, p["w_uk"].placements)]
+    cp = [Shard(0) if r else Replicate() for r in rows]
+    wp = [Shard(1) if h else Replicate() for h in heads]
+    qp = [Shard(0) if r else Shard(2) if h else Replicate()
+          for r, h in zip(rows, heads)]
+    o = _latent_attention(
+        *(t.redistribute(mesh, qp).to_local() for t in (q_nope, q_rope)),
+        *(t.redistribute(mesh, cp).to_local() for t in (c, kr)),
+        *(p[w].redistribute(mesh, wp).to_local() for w in ("w_uk", "w_uv")),
+        mask.redistribute(mesh, cp).to_local(), qk_nope, qk_rope, kv_chunk)
+    shape = (*q_nope.shape[:3], p["w_uv"].shape[2])
+    return DTensor.from_local(o.contiguous(), mesh, qp, run_check=False,
+                              shape=shape, stride=contiguous_stride(*shape))

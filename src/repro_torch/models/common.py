@@ -9,11 +9,13 @@ signatures.  The dry run reads the parameters' specs as placements on a
 device mesh (`launch/mesh.py`, `launch/train.state_shardings`) and, for
 a mesh that splits the step, runs it on DTensors: there
 `logical_constraint` redistributes to the hint's placements,
-`token_positions` makes positions split as the tokens are, `take_rows`
-looks an embedding up as its rows are split, and
-`write_rows_` / `write_columns_` write a cache on this rank's shard.  The eager
-single-card steps apply no placement: on a plain tensor both do what the
-model wrote, and nothing more.
+`token_positions` / `slot_positions` make positions split as the tokens
+or the cache slots are, `batched` makes a mask or state split as its
+operand's batch, `take_rows` looks an embedding up on its split rows,
+`reduce_over` all-reduces a partial result, and `write_rows_` /
+`write_columns_` write a cache on this rank's shard.  The eager
+single-card steps apply no placement: on a plain tensor each does what
+the model wrote, and nothing more.
 
 A parameter tree is a nested dict/list of tensors with the reference's
 keys; the models are plain functions over it.
@@ -28,7 +30,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -102,11 +104,27 @@ def logical_constraint(x: torch.Tensor, rules: Mapping[str, Any],
     return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
 
 
-def _split(dt: DTensor, dim: int) -> bool:
+def is_split(dt: DTensor, dim: int) -> bool:
     """Whether `dt`'s dimension `dim` is split over a mesh axis wider
     than one device."""
     return any(p.is_shard() and p.dim == dim and n > 1
                for p, n in zip(dt.placements, dt.device_mesh.shape))
+
+
+def reduce_over(local: torch.Tensor, like: DTensor, dim: int,
+                op: str = "sum") -> torch.Tensor:
+    """`local`, a partial result on this rank, reduced (`op` "sum" or
+    "max") over the mesh axes that split `like`'s dimension `dim`: one
+    all-reduce, as a local tensor."""
+    mesh = like.device_mesh
+    over = [p.is_shard() and p.dim == dim and n > 1
+            for p, n in zip(like.placements, mesh.shape)]
+    if not any(over):
+        return local
+    part = DTensor.from_local(
+        local, mesh, [Partial(op) if o else Replicate() for o in over],
+        run_check=False, shape=local.shape, stride=local.stride())
+    return part.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
 
 
 def token_positions(tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -127,18 +145,78 @@ def token_positions(tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
         run_check=False, shape=(b, s), stride=steps.stride())
 
 
+def batched(factory: Callable, like: torch.Tensor, shape: Sequence[int],
+            *args, **kwargs) -> torch.Tensor:
+    """`factory(shape, *args, **kwargs)` on `like`'s device (a mask or a
+    state made whole, such as `torch.zeros`).  For a DTensor `like` it
+    is split as `like`'s batch (dimension 0) is: each rank makes its own
+    rows only."""
+    if not isinstance(like, DTensor):
+        return factory(shape, *args, **kwargs, device=like.device)
+    mesh = like.device_mesh
+    places = [p if p.is_shard() and p.dim == 0 else Replicate()
+              for p in like.placements]
+    local = factory(compute_local_shape_and_global_offset(
+        shape, mesh, places)[0], *args, **kwargs,
+        device=like.to_local().device)
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=tuple(shape),
+                              stride=contiguous_stride(*shape))
+
+
+def slot_positions(cache: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions 0 .. S - 1 of a cache leaf's S slots (B, S, ...)
+    on every row, one arange expanded.  For a DTensor they are split as
+    the leaf's rows and slots are."""
+    b, s = cache.shape[:2]
+    if not isinstance(cache, DTensor):
+        return torch.arange(s, device=cache.device)[None].expand(b, s)
+    mesh = cache.device_mesh
+    places = [p if p.is_shard() and p.dim in (0, 1) else Replicate()
+              for p in cache.placements]
+    (rows, n), offset = compute_local_shape_and_global_offset(
+        (b, s), mesh, places)
+    steps = torch.arange(offset[1], offset[1] + n,
+                         device=cache.to_local().device)[None].expand(rows, n)
+    return DTensor.from_local(steps, mesh, places, run_check=False,
+                              shape=(b, s), stride=steps.stride())
+
+
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """`table[ids]`: the rows of an embedding table.  A DTensor table is
     gathered over every axis but the one that splits its rows (as FSDP
-    gathers a weight before use) and, where its rows are split, looked
-    up as an embedding, whose DTensor strategy splits the lookup as the
-    rows are split."""
+    gathers a weight before use).  Where its rows are split, each rank
+    looks up the ids its rows hold (zeros for the others) and the
+    lookups are summed over the rows' axes, one all-reduce of the
+    result: no rank holds the whole table."""
     if not isinstance(table, DTensor):
         return table[ids]
-    rows = [Replicate() if p.is_shard() and p.dim != 0 else p
-            for p in table.placements]
-    table = table.redistribute(table.device_mesh, rows)
-    return F.embedding(ids, table) if _split(table, 0) else table[ids]
+    mesh = table.device_mesh
+    table = table.redistribute(mesh, [
+        Replicate() if p.is_shard() and p.dim != 0 else p
+        for p in table.placements])
+    if not is_split(table, 0):
+        return table[ids]
+    out_p = [Replicate() if t.is_shard() else p
+             for t, p in zip(table.placements, ids.placements)]
+    ids_l = ids.redistribute(mesh, out_p).to_local()
+    local = table.to_local()
+    at = ids_l - compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)[1][0]
+    inside = (at >= 0) & (at < local.shape[0])
+    rows = F.embedding(at.clamp(0, local.shape[0] - 1), local)
+    rows = reduce_over(torch.where(inside[..., None], rows, 0), table, 0)
+    shape = (*ids.shape, table.shape[1])
+    return DTensor.from_local(rows, mesh, out_p, run_check=False,
+                              shape=shape, stride=contiguous_stride(*shape))
+
+
+def contiguous_stride(*shape: int) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape`."""
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
 
 
 def write_rows_(dst: torch.Tensor, slots: torch.Tensor,
@@ -194,7 +272,7 @@ def _write_shard_(dst: DTensor, slots, values, *, per_row: bool) -> None:
                         for d in range(2, dst.ndim)]
     vals = _as_shard(values, dst, dims, shape, offset)
     if isinstance(slots, slice):
-        if not _split(dst, 1):
+        if not is_split(dst, 1):
             local[:, slots] = vals
             return
         slots = torch.arange(slots.start or 0, slots.stop,
@@ -203,7 +281,7 @@ def _write_shard_(dst: DTensor, slots, values, *, per_row: bool) -> None:
         at = _as_shard(slots, dst, [0] + [None] * (dst.ndim - 1), shape,
                        offset)
         r = torch.arange(n_rows, device=local.device)
-        if not _split(dst, 1):
+        if not is_split(dst, 1):
             local.index_put_((r, at), vals)
             return
         at = at.long() - offset[1]
@@ -212,7 +290,7 @@ def _write_shard_(dst: DTensor, slots, values, *, per_row: bool) -> None:
         keep = inside.view(n_rows, *[1] * (vals.ndim - 1))
         local[r, at] = torch.where(keep, vals, local[r, at])
         return
-    if not _split(dst, 1):
+    if not is_split(dst, 1):
         local[:, slots] = vals
         return
     # The same slots for every row: each slot of the shard takes the

@@ -23,7 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
-                                       logical_constraint, norm_spec, remat,
+                                       batched, logical_constraint,
+                                       norm_spec, remat, slot_positions,
                                        stack_specs, take_rows,
                                        token_positions, tree_unbind,
                                        write_columns_)
@@ -119,7 +120,7 @@ class EncDecLM:
         b, s, _ = frames.shape
         x = frames.to(params["embed"].dtype)
         x = x + _sinusoid(s, cfg.d_model, x.device).to(x.dtype)[None]
-        full = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+        full = batched(torch.ones, x, (b, s, s), dtype=torch.bool)
         if rules is not None:
             x = logical_constraint(x, rules, "batch", None, "act_embed")
             full = logical_constraint(full, rules, "batch", None, None)
@@ -148,8 +149,8 @@ class EncDecLM:
         x = x + params["dec_pos"][:s][None].to(x.dtype)
         pos = token_positions(tokens)
         causal = attn.make_mask(pos, pos)
-        xs_full = torch.ones((b, s, enc.shape[1]), dtype=torch.bool,
-                             device=x.device)
+        xs_full = batched(torch.ones, tokens, (b, s, enc.shape[1]),
+                          dtype=torch.bool)
         if rules is not None:
             x = logical_constraint(x, rules, "batch", None, "act_embed")
             causal = logical_constraint(causal, rules, "batch", None, None)
@@ -216,12 +217,12 @@ class EncDecLM:
         x = take_rows(params["embed"], tokens.long())
         at = min(max(int(idx), 0), params["dec_pos"].shape[0] - 1)
         x = x + params["dec_pos"][at:at + 1][None].to(x.dtype)
-        pos = torch.full((b, 1), idx, dtype=torch.long, device=x.device)
+        pos = batched(torch.full, tokens, (b, 1), idx, dtype=torch.long)
         slots = cache["self_k"].shape[2]
-        kv_pos = torch.arange(slots, device=x.device)[None].expand(b, slots)
-        self_mask = attn.make_mask(pos, kv_pos)
-        cross_mask = torch.ones((b, 1, cache["cross_k"].shape[2]),
-                                dtype=torch.bool, device=x.device)
+        self_mask = attn.make_mask(pos, slot_positions(cache["self_k"][0]))
+        cross_mask = batched(torch.ones, tokens,
+                             (b, 1, cache["cross_k"].shape[2]),
+                             dtype=torch.bool)
         write = min(max(int(idx), 0), slots - 1)
         for i, lp in enumerate(tree_unbind(params["dec_layers"])):
             sk, sv = cache["self_k"][i], cache["self_v"][i]

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import remat
+from repro_torch.models.common import batched, remat
 
 CHUNK = 16
 LOG_DECAY_MIN = -8.0
@@ -150,8 +150,8 @@ def rwkv6_time_mix(x: torch.Tensor, p: Dict, *, num_heads: int,
     w = w.reshape(b, s, num_heads, dk)
 
     s0 = (state["wkv"] if state is not None else
-          torch.zeros((b, num_heads, dk, dk), dtype=torch.float32,
-                      device=x.device))
+          batched(torch.zeros, x, (b, num_heads, dk, dk),
+                  dtype=torch.float32))
     fn = wkv6_chunked if (chunked and s % CHUNK == 0 and s > 1) else wkv6_scan
     y, s_new = fn(r, k, v, w, p["u"], s0)
 
@@ -266,8 +266,8 @@ def causal_conv1d(x, w, bias, state=None):
     F.conv1d, which the card would run in TF32 by default)."""
     k = w.shape[0]
     if state is None:
-        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                            device=x.device)
+        state = batched(torch.zeros, x, (x.shape[0], k - 1, x.shape[2]),
+                        dtype=x.dtype)
     xp = torch.cat([state, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i][None, None] for i in range(k))
     new_state = xp[:, -(k - 1):] if k > 1 else state
@@ -292,8 +292,8 @@ def mamba_mixer(x: torch.Tensor, p: Dict, *, state: Optional[Dict] = None,
                     + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"].float())
     h0 = (state["ssm"] if state is not None else
-          torch.zeros((b, xin.shape[-1], n_state), dtype=torch.float32,
-                      device=x.device))
+          batched(torch.zeros, x, (b, xin.shape[-1], n_state),
+                  dtype=torch.float32))
     fn = mamba_chunked if (chunked and s % CHUNK == 0 and s > 1) else mamba_scan
     y, h = fn(xin, dt, A, Bm, Cm, p["D"], h0)
     y = y.to(x.dtype) * F.silu(z)

@@ -44,10 +44,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
-                                       norm_spec, remat, stack_specs,
-                                       take_rows, token_positions,
-                                       tree_index, tree_unbind,
-                                       write_columns_, write_rows_)
+                                       norm_spec, remat, slot_positions,
+                                       stack_specs, take_rows,
+                                       token_positions, tree_index,
+                                       tree_unbind, write_columns_,
+                                       write_rows_)
 from repro_torch.models.moe import moe_ffn
 
 REMAT_POLICIES = ("none", "save_boundaries", "full", "dots")
@@ -351,9 +352,7 @@ def _mixer_forward(x, p, cfg: ModelConfig, positions, layer_idx_global,
                 qk_rope=m.qk_rope, v_dim=m.v_dim, rope_theta=cfg.rope_theta,
                 mask=mask, kv_chunk=cfg.attn_kv_chunk)
             return out, None
-        slots = cache["c_kv"].shape[1]
-        kv_pos = torch.arange(slots, device=x.device)[None].expand(
-            x.shape[0], slots)
+        kv_pos = slot_positions(cache["c_kv"])
         # MLA cache is positional (no ring): slot i holds token i; causal
         # masking against the current positions is the only validity needed.
         mask = attn.make_mask(pos, kv_pos, window=window)

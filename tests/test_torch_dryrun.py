@@ -115,52 +115,96 @@ def test_lowering_every_cell():
 
 MINI = ["gemma3-1b", "rwkv6-7b", "deepseek-v2-lite-16b"]
 MINI_SHAPE = ("mini", 64, 8, "train")
+# The mini cells, each (shape, attn_kv_chunk or None for the config's):
+# the train step, a prefill of 64 tokens, a decode step over 64 slots
+# (scored whole), and one over 256 slots in chunks of 32, so the chunked
+# path runs on both sides from the same config.
+MINI_CELLS = {"train": (MINI_SHAPE, None),
+              "prefill": (("mini", 64, 8, "prefill"), None),
+              "decode": (("mini", 64, 8, "decode"), None),
+              "decode_chunked": (("mini", 256, 8, "decode"), 32)}
 
 REF_MINI = textwrap.dedent("""
-    import os, json, math
+    import dataclasses, os, json, math, re
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import jax, jax.numpy as jnp
     jax.devices()
     from jax.sharding import NamedSharding, PartitionSpec as P
     from repro import optim
     from repro.configs import get_config
+    from repro.launch import serve as serve_lib
     from repro.launch import train as train_lib
     from repro.launch.dryrun import _n_micro, _shape_rules
+    from repro.launch.hlo_analysis import (_OP_RE, _shape_bytes,
+                                           collective_bytes)
     from repro.launch.mesh import make_mesh
     from repro.launch.shapes import ShapeSpec, batch_shardings, input_specs
+    from repro.models.common import param_sharding, param_shapes
     from repro.models.registry import build
     mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
-    shape = ShapeSpec(*{shape!r})
     out = {{}}
 
     def nbytes(leaves, shardings):
         return sum(math.prod(s.shard_shape(l.shape)) * l.dtype.itemsize
                    for l, s in zip(leaves, shardings))
 
-    for arch in {archs!r}:
-        cfg = get_config(arch, smoke=True)
+    def largest(hlo):
+        big = {{}}
+        for line in hlo.splitlines():
+            m = None if "-done(" in line else _OP_RE.search(line)
+            if m:
+                op = m.group("op")
+                big[op] = max(big.get(op, 0), _shape_bytes(m.group("shapes")))
+        return big
+
+    def compile_cell(cfg, shape):
+        # The reference dry run's cell (launch/dryrun.py lower_cell) at
+        # this shape.
         model = build(cfg)
+        specs = model.param_specs()
         rules = _shape_rules(train_lib.make_rules(cfg, mesh), shape, mesh,
                              cfg)
-        st = train_lib.abstract_state(model)
-        sh = train_lib.state_shardings(model.param_specs(), rules, mesh)
         b = input_specs(cfg, shape)
         bs = batch_shardings(cfg, shape, mesh, rules)
-        # The reference dry run's train cell (launch/dryrun.py lower_cell)
-        # at this shape: XLA's memory_analysis() and cost_analysis().
         with (jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh):
-            step = train_lib.make_train_step(
-                model, cfg, rules, optim.AdamWConfig(),
-                n_micro=_n_micro(cfg, shape, mesh))
-            co = jax.jit(step, in_shardings=(sh, bs),
-                         out_shardings=(sh, None),
-                         donate_argnums=(0,)).lower(st, b).compile()
+            if shape.kind == "train":
+                st = train_lib.abstract_state(model)
+                sh = train_lib.state_shardings(specs, rules, mesh)
+                step = train_lib.make_train_step(
+                    model, cfg, rules, optim.AdamWConfig(),
+                    n_micro=_n_micro(cfg, shape, mesh))
+                co = jax.jit(step, in_shardings=(sh, bs),
+                             out_shardings=(sh, None),
+                             donate_argnums=(0,)).lower(st, b).compile()
+                shard_bytes = (nbytes(jax.tree.leaves(st),
+                                      jax.tree.leaves(sh))
+                               + nbytes([b[k] for k in b], [bs[k] for k in b]))
+            else:
+                ps = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                                  param_sharding(specs, rules))
+                params = param_shapes(specs, dtype=jnp.bfloat16)
+                cache = serve_lib.abstract_cache(model, shape.global_batch,
+                                                 shape.seq_len)
+                cs = serve_lib.cache_shardings(cache, mesh, rules)
+                if shape.kind == "prefill":
+                    step = serve_lib.make_prefill_step(model, rules)
+                    co = jax.jit(step, in_shardings=(ps, bs, cs),
+                                 out_shardings=(None, cs),
+                                 donate_argnums=(2,)).lower(
+                                     params, b, cache).compile()
+                else:
+                    step = serve_lib.make_decode_step(model, rules)
+                    co = jax.jit(step, in_shardings=(ps, cs, bs["tokens"]),
+                                 out_shardings=(None, cs),
+                                 donate_argnums=(1,)).lower(
+                                     params, cache, b["tokens"]).compile()
+                shard_bytes = None
         ma = co.memory_analysis()
         ca = co.cost_analysis() or {{}}
         ca = ca[0] if isinstance(ca, list) else ca
-        out[arch] = {{
-            "shard_bytes": (nbytes(jax.tree.leaves(st), jax.tree.leaves(sh))
-                            + nbytes([b[k] for k in b], [bs[k] for k in b])),
+        hlo = co.as_text()
+        return {{
+            "shard_bytes": shard_bytes,
             "memory": {{
                 "argument_bytes": int(ma.argument_size_in_bytes),
                 "output_bytes": int(ma.output_size_in_bytes),
@@ -172,13 +216,38 @@ REF_MINI = textwrap.dedent("""
                     / 2**30, 3)}},
             "cost": {{"flops": float(ca.get("flops", 0.0)),
                       "bytes_accessed": float(ca.get("bytes accessed",
-                                                     0.0))}}}}
+                                                     0.0))}},
+            "collectives": collective_bytes(hlo),
+            "largest": largest(hlo)}}
+
+    for arch in {archs!r}:
+        out[arch] = {{}}
+        for cell, (shape, kv_chunk) in {cells!r}.items():
+            cfg = get_config(arch, smoke=True)
+            if kv_chunk:
+                cfg = dataclasses.replace(cfg, attn_kv_chunk=kv_chunk)
+            out[arch][cell] = compile_cell(cfg, ShapeSpec(*shape))
     print(json.dumps(out))
 """)
-# The port's per-device peak over XLA's on the mini cells, measured on
-# the CPU first: 1.071 gemma3, 0.770 rwkv6, 0.659 deepseek-v2-lite
+# The port's per-device peak over XLA's on the mini train cells, measured
+# on the CPU first: 1.071 gemma3, 0.770 rwkv6, 0.659 deepseek-v2-lite
 # (smoke() size, PERF.md §6); the band holds it within 0.5-2x of XLA's.
 PEAK_TO_REF = (0.5, 2.0)
+# gemma3's traced all-gather bytes over XLA's on the four mini cells,
+# measured first (PERF.md §6): train 1.453, prefill 0.500, decode
+# 0.590, chunked decode 0.736.  XLA on the CPU gathers weights in
+# float32 where the port gathers bf16 (the lower end: prefill is
+# weights alone), and the port's all-gather holds what XLA moves as an
+# all-to-all (the upper end).  Before the gather of a split cache was
+# hoisted out of the chunk loop and the loss kept vocab-split, the
+# chunked decode was 1.928 and train 1.716.
+GATHER_TO_REF = (0.45, 1.6)
+# gemma3's traced FLOPs over XLA's on the cells whose XLA program has no
+# loop (gemma3's layers are unscanned; prefill and decode at the default
+# kv_chunk), measured first: prefill 0.874, decode 0.617.  The port
+# counts matrix products (FlopCounterMode's formulas), XLA elementwise
+# work too, which weighs most in a decode step.
+FLOPS_TO_REF = (0.55, 1.0)
 MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
                "alias_bytes", "peak_per_device_gib"}
 
@@ -186,18 +255,31 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
 @pytest.fixture(scope="module")
 def mini_records():
     mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
-    port = {arch: dryrun.lower(get_config(arch, smoke=True),
-                               ShapeSpec(*MINI_SHAPE), mesh)
-            for arch in MINI}
+    port = {}
+    for arch in MINI:
+        port[arch] = {}
+        for cell, (shape, kv_chunk) in MINI_CELLS.items():
+            cfg = get_config(arch, smoke=True)
+            if kv_chunk:
+                cfg = dataclasses.replace(cfg, attn_kv_chunk=kv_chunk)
+            memo = {}
+            rec = dryrun.lower(cfg, ShapeSpec(*shape), mesh, memo=memo)
+            # The trace's largest collective result of each kind, over
+            # the traces the record was made from.
+            largest = {}
+            for trace in memo.values():
+                for kind, n in trace["coll_largest"].items():
+                    largest[kind] = max(largest.get(kind, 0), n)
+            port[arch][cell] = (rec, largest)
     port["cuda"] = torch.cuda.is_initialized()
-    ref = _child(REF_MINI.format(archs=MINI, shape=MINI_SHAPE))
+    ref = _child(REF_MINI.format(archs=MINI, cells=MINI_CELLS))
     return port, ref
 
 
 @pytest.mark.parametrize("arch", MINI)
 def test_traced_mini_cell(arch, mini_records):
     port, ref = mini_records
-    rec, xla = port[arch], ref[arch]
+    rec, xla = port[arch]["train"][0], ref[arch]["train"]
     assert port["cuda"] is False
     assert rec["status"] == "OK" and rec["n_micro"] >= 1
     assert rec["trace_mode"] == "full"
@@ -232,6 +314,64 @@ def test_traced_mini_cell(arch, mini_records):
     assert row["peak_gib"] == mem["peak_per_device_gib"] > 0
     assert row["hlo_raw_flops"] == cost["flops"] > 0
     assert "| None |" not in roofline.to_markdown([row], [])
+
+
+# The reference's serving caches carry an int32 `index` cursor (4 B) that
+# the port keeps as a Python int, so XLA's arguments (and, donated, its
+# aliases) are 4 B more.  Where a prefill overwrites the donated cache
+# without reading it, XLA drops it: its arguments lack the cache.
+INDEX_BYTES = 4
+
+
+@pytest.mark.parametrize("cell", sorted(MINI_CELLS))
+@pytest.mark.parametrize("arch", MINI)
+def test_mini_cell_against_xla(arch, cell, mini_records):
+    """Every mini cell beside the reference's compiled one: argument and
+    alias bytes as the two programs hold them; for gemma3 (whose layers
+    are unscanned, so XLA's HLO holds each once) no all-gather larger
+    than XLA's largest (no logits gathered in train, no cache gathered
+    per chunk in decode), the traced all-gather bytes within
+    GATHER_TO_REF of XLA's, and on the cells with no loop in XLA's
+    program the FLOPs within FLOPS_TO_REF.  rwkv6 and deepseek print the
+    same comparison."""
+    port, ref = mini_records
+    (rec, largest), xla = port[arch][cell], ref[arch][cell]
+    kind = MINI_CELLS[cell][0][3]
+    assert rec["status"] == "OK" and rec["partitioned"] is True
+    mem, x = rec["memory"], xla["memory"]
+    held = (x["argument_bytes"], x["alias_bytes"])
+    if kind == "train":
+        assert held == (mem["argument_bytes"], mem["alias_bytes"])
+    else:
+        kept = (mem["argument_bytes"] + INDEX_BYTES,
+                mem["alias_bytes"] + INDEX_BYTES)
+        dropped = (mem["argument_bytes"] - mem["alias_bytes"] + INDEX_BYTES,
+                   INDEX_BYTES)
+        # gemma3's prefill zeroes its cache before writing it (its
+        # attention cache is a ring); the others read theirs.
+        assert held == (dropped if (arch, kind) == ("gemma3-1b", "prefill")
+                        else kept)
+    gather = rec["collectives_traced"].get("all-gather", 0.0)
+    ref_gather = xla["collectives"].get("all-gather", 0.0)
+    big, ref_big = (largest.get("all-gather", 0),
+                    xla["largest"].get("all-gather", 0))
+    flops, ref_flops = rec["cost"]["flops"], xla["cost"]["flops"]
+    peak = mem["argument_bytes"] + mem["output_bytes"] + \
+        mem["temp_bytes"] - mem["alias_bytes"]
+    ref_peak = x["argument_bytes"] + x["output_bytes"] + x["temp_bytes"] \
+        - x["alias_bytes"]
+    print(f"{arch} {cell}: all-gather {gather:.0f} B, XLA's {ref_gather:.0f}"
+          f" (ratio {gather / ref_gather:.3f}; XLA's all-to-all "
+          f"{xla['collectives'].get('all-to-all', 0.0):.0f}); largest "
+          f"all-gather {big} B, XLA's {ref_big}; flops {flops:.4e}, XLA's "
+          f"{ref_flops:.4e} (ratio {flops / ref_flops:.3f}); peak {peak} "
+          f"B, XLA's {ref_peak} (ratio {peak / ref_peak:.3f})")
+    if arch != "gemma3-1b":
+        return
+    assert 0 < big <= ref_big
+    assert GATHER_TO_REF[0] <= gather / ref_gather <= GATHER_TO_REF[1]
+    if cell in ("prefill", "decode"):
+        assert FLOPS_TO_REF[0] <= flops / ref_flops <= FLOPS_TO_REF[1]
 
 
 def _held(*trees):
@@ -431,13 +571,7 @@ def test_collective_bytes_two_leaves_train():
                    "reduce-scatter_count": 4.0}
 
 
-def test_collective_bytes_two_leaves_decode():
-    """Decode, 3 sequences per device.  Both leaves gathered once (96 B).
-    b's input dimension (mlp) is split over model: a residual combine of
-    3 rows x its gathered width 8 x 2 B = 48 B.  A stacked v cache
-    (L=2, B=4, S=16, KH=2, D=4) with its sequence split over model
-    (2 ways) and batch over data: per layer one token's row (2, 1, 2, 4)
-    in float32 = 64 B, twice."""
+def _two_leaves_decode(kv_chunk):
     mesh = make_mesh((2, 2), ("data", "model"))
     rules = dict(DEFAULT_RULES, embed="data", mlp="model", batch="data",
                  cache_seq="model", cache_heads=None)
@@ -445,12 +579,35 @@ def test_collective_bytes_two_leaves_decode():
         "v": torch.empty((2, 4, 16, 2, 4), device="meta"),
         "k": torch.empty((2, 4, 16, 2, 4), device="meta")}}}
     shard = serve_lib.cache_shardings(cache, mesh, rules)
-    out = comm_analysis.collective_bytes(
+    return comm_analysis.collective_bytes(
         "decode", TWO_LEAVES, rules, mesh, tokens=3, cache=cache,
-        cache_shardings=shard)
-    assert out == {"all-gather": 96.0, "all-reduce": 48.0 + 128.0,
-                   "total": 272.0, "all-gather_count": 2.0,
-                   "all-reduce_count": 3.0}
+        cache_shardings=shard, kv_chunk=kv_chunk)
+
+
+def test_collective_bytes_two_leaves_decode():
+    """Decode, 3 sequences per device.  Both leaves gathered once (96 B).
+    b's input dimension (mlp) is split over model: a residual combine of
+    3 rows x its gathered width 8 x 2 B = 48 B.  A stacked k and v cache
+    (L=2, B=4, S=16, KH=2, D=4) with its sequence split over model
+    (2 ways) and batch over data, scanned in chunks of 4: as the
+    reference's XLA program does, each leaf is cast to float32 and
+    gathered whole over its sequence once a layer, at the device's batch:
+    (2, 16, 2, 4) x 4 B = 1024 B, two layers, two leaves."""
+    assert _two_leaves_decode(4) == {
+        "all-gather": 96.0 + 4096.0, "all-reduce": 48.0, "total": 4240.0,
+        "all-gather_count": 6.0, "all-reduce_count": 1.0}
+
+
+def test_collective_bytes_two_leaves_decode_scored_whole():
+    """The same cache scored whole (no chunk, or one no shorter than the
+    cache): the partial softmax is combined, k and v sharing one
+    all-reduce of one token's row (2, 1, 2, 4) in float32 = 64 B a
+    layer, twice."""
+    for kv_chunk in (None, 16, 5):
+        assert _two_leaves_decode(kv_chunk) == {
+            "all-gather": 96.0, "all-reduce": 48.0 + 128.0,
+            "total": 272.0, "all-gather_count": 2.0,
+            "all-reduce_count": 3.0}
 
 
 # ------------------------------------------------------- analytic roofline

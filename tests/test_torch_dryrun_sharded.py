@@ -22,7 +22,7 @@ group that lives only inside the trace.
 (c) A warm and a cold DTensor propagation cache give identical figures.
 (d) `logical_constraint` returns a plain tensor as the same object and
     redistributes a DTensor; `write_rows_` on a split cache writes this
-    rank's rows.
+    rank's rows; `batched` and `slot_positions` make this rank's part.
 (e) No process group after importing the launch modules, nor after a
     trace.
 """
@@ -41,7 +41,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.shapes import ShapeSpec
-from repro_torch.models.common import (DEFAULT_RULES, logical_constraint,
+from repro_torch.models.common import (DEFAULT_RULES, batched,
+                                       logical_constraint, slot_positions,
                                        write_rows_)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -117,7 +118,7 @@ def _attention_flops(cfg, batch, slots):
 
 # Per-device FLOPs x 4 over the 1 x 1 trace's where the step keeps some
 # products whole on more than one rank (deepseek-v2-lite's experts and
-# routing: measured 1.353 train, 1.059 decode): the bound it stays under.
+# routing: measured 1.353 train, 1.068 decode): the bound it stays under.
 KEPT_WHOLE = {("deepseek-v2-lite-16b", "train"): 1.5,
               ("deepseek-v2-lite-16b", "decode"): 1.5}
 
@@ -202,6 +203,32 @@ def test_write_rows_writes_this_ranks_rows_of_a_split_cache():
     plain = torch.zeros(4, 8)
     write_rows_(plain, slots, torch.tensor([5.0, 7.0, 1.0, 2.0]))
     assert plain[0, 1] == 5 and plain[1, 6] == 7 and plain[3, 0] == 2
+
+
+def test_factories_make_this_ranks_part():
+    """`batched` makes a state or mask split as its operand's batch,
+    and `slot_positions` a cache's slot positions split as its rows and
+    slots: rank 0 holds rows 0-1 and, of a slot-split cache, slots 0-3.
+    On plain tensors both make the whole tensor, as the eager steps
+    did."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    with dryrun.one_rank(mesh) as dm:
+        rows = DTensor.from_local(torch.ones(2, 6), dm,
+                                  [Shard(0), Replicate()], run_check=False)
+        state = batched(torch.zeros, rows, (4, 3, 5), dtype=torch.float32)
+        assert (tuple(state.shape), tuple(state.placements)) == \
+            ((4, 3, 5), (Shard(0), Replicate()))
+        assert torch.equal(state.to_local(), torch.zeros(2, 3, 5))
+        cache = DTensor.from_local(torch.zeros(2, 4, 3), dm,
+                                   [Shard(0), Shard(1)], run_check=False)
+        pos = slot_positions(cache)
+        assert (tuple(pos.shape), tuple(pos.placements)) == \
+            ((4, 8), (Shard(0), Shard(1)))
+        assert pos.to_local().tolist() == [[0, 1, 2, 3]] * 2
+    assert torch.equal(batched(torch.full, torch.ones(4), (4, 1), 7,
+                               dtype=torch.long), torch.full((4, 1), 7))
+    assert torch.equal(slot_positions(torch.zeros(3, 8, 2)),
+                       torch.arange(8)[None].expand(3, 8))
 
 
 # ------------------------------------------------------- (e)

@@ -3,8 +3,8 @@ tests/analysis/test_lint_clean.py and test_style_gate.py: zero findings
 on the shipped tree, the committed baseline empty and in sync, the CLI's
 exit codes (a stale baseline entry fails, a violation put into a copied
 tree fails, --write-baseline round-trips, --json dumps), the bench's
---lint-report rows, and a style gate over the analysis and examples
-packages.
+--lint-report rows, and a style gate over the analysis, core and
+examples packages and the analytic roofline.
 """
 import ast
 import json
@@ -26,7 +26,11 @@ BASELINE_PATH = REPO / BASELINE
 # Besides the required files: what the B family scans for backends and
 # the K family follows to the RST base.
 EXTRA = ("src/repro_torch/core/rst.py",)
-STYLE_SCOPE = ("src/repro_torch/analysis", "src/repro_torch/examples")
+# The reference's gate scope (tests/analysis/test_style_gate.py) in the
+# port's tree, with its examples.
+STYLE_SCOPE = ("src/repro_torch/analysis", "src/repro_torch/core",
+               "src/repro_torch/examples",
+               "src/repro_torch/launch/roofline.py")
 LINE_LIMIT = 95  # keep in sync with [tool.ruff] line-length
 
 
@@ -186,7 +190,11 @@ def test_bench_lint_report_json_and_exclusive_modes(tmp_path, capsys):
 # ------------------------------------------------------------ style gate
 def _scope_files():
     for rel in STYLE_SCOPE:
-        yield from sorted((REPO / rel).glob("*.py"))
+        path = REPO / rel
+        if path.is_file():
+            yield path
+        else:
+            yield from sorted(path.glob("*.py"))
 
 
 def test_ruff_clean_if_available():

@@ -1,0 +1,163 @@
+"""The partitioned program's values, on two CPU ranks.
+
+The dry run traces the partitioned step for its memory and collectives;
+this holds its values.  Two gloo processes (a `FileStore` under the
+test's directory) form a ("model",) mesh of 2 and run, on DTensors split
+as the production rules split them, against the plain path on the whole
+tensors in float32 (rtol = atol = 1e-5):
+
+* decode attention over a cache whose slots are split
+  (`models.attention.gqa_attention`): scored whole (each rank scores its
+  slots; the softmax combined across the ranks), and in chunks of
+  `kv_chunk` (the slots gathered once, then the chunks in order), each
+  with a chunk whose slots are all masked; and MLA's over a latent cache
+  whose slots are split, its weights' heads split
+  (`models.attention._latent_attention_split`);
+* the loss over vocab-split logits (`launch.train.lm_loss`): its value
+  and the gradient of the logits.
+
+The processes are started with `torch.multiprocessing` and joined with
+a deadline: a hang fails the test instead of holding the suite.
+"""
+import os
+import time
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+from repro_torch.launch import train
+from repro_torch.models import attention as attn
+
+TOL = 1e-5
+DEADLINE_S = 120
+# (B, Sq, H, KH, D, slots): GQA with two query heads a kv head.
+ATTN_SHAPE = (3, 1, 4, 2, 8, 64)
+
+
+def _attention_cases(rank, mesh):
+    b, sq, h, kh, d, slots = ATTN_SHAPE
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               for shape in ((b, sq, h, d), (b, slots, kh, d),
+                             (b, slots, kh, d)))
+    mask = torch.from_numpy(rng.random((b, sq, slots)) < 0.7)
+    mask[:, :, 16:32] = False            # a chunk of 16 wholly masked
+    mask[1, :, :] = False                # a row with no slot at all
+    mask[1, :, 40] = True
+    split_k = [Shard(1)]                 # the cache's slots over "model"
+    for kv_chunk in (None, 16, 32):
+        want = attn.gqa_attention(q, k, v, mask, kv_chunk=kv_chunk)
+        got = attn.gqa_attention(
+            distribute_tensor(q, mesh, [Replicate()]),
+            distribute_tensor(k, mesh, split_k),
+            distribute_tensor(v, mesh, split_k),
+            distribute_tensor(mask, mesh, [Shard(2)]), kv_chunk=kv_chunk)
+        got = got.full_tensor()
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    return "attention"
+
+
+def _latent_cases(rank, mesh):
+    b, h, nope, rope, vd, lora, slots = 2, 4, 8, 4, 6, 10, 64
+    rng = np.random.default_rng(2)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    q_nope, q_rope = randn(b, 1, h, nope), randn(b, 1, h, rope)
+    c, kr = randn(b, slots, lora), randn(b, slots, rope)
+    w = {"w_uk": randn(lora, h, nope), "w_uv": randn(lora, h, vd)}
+    mask = torch.from_numpy(rng.random((b, 1, slots)) < 0.7)
+    mask[:, :, 32:48] = False
+    for kv_chunk in (None, 16):
+        want = attn._latent_attention(q_nope, q_rope, c, kr, w["w_uk"],
+                                      w["w_uv"], mask, nope, rope, kv_chunk)
+        split = [Shard(1)]
+        got = attn._latent_attention_split(
+            *(distribute_tensor(t, mesh, [Shard(2)]) for t in (q_nope,
+                                                               q_rope)),
+            distribute_tensor(c, mesh, split),
+            distribute_tensor(kr, mesh, split),
+            {k: distribute_tensor(t, mesh, [Shard(1)]) for k, t in w.items()},
+            distribute_tensor(mask, mesh, [Shard(2)]), nope, rope, kv_chunk)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                   atol=TOL)
+    return "latent"
+
+
+class _Logits:
+    """A model whose forward returns the given logits."""
+
+    def __init__(self, logits):
+        self.logits = logits
+
+    def forward(self, params, batch, rules):
+        return self.logits, 0.0
+
+
+def _loss_cases(rank, mesh):
+    b, s, vocab = 2, 5, 37               # 37: an uneven vocab split
+    rng = np.random.default_rng(1)
+    logits = torch.from_numpy(
+        4 * rng.standard_normal((b, s, vocab), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, vocab, (b, s)))
+    labels[0, 0], labels[1, 4] = 0, vocab - 1      # both ends of the split
+    whole = logits.clone().requires_grad_(True)
+    total, parts = train.lm_loss(_Logits(whole), None, {"labels": labels},
+                                 None)
+    total.backward()
+    split = distribute_tensor(logits, mesh, [Shard(2)]).requires_grad_(True)
+    got, got_parts = train.lm_loss(
+        _Logits(split), None,
+        {"labels": distribute_tensor(labels, mesh, [Replicate()])}, None)
+    got.backward()
+    torch.testing.assert_close(got.full_tensor(), total, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(got_parts["ce"].full_tensor(), parts["ce"],
+                               rtol=TOL, atol=TOL)
+    torch.testing.assert_close(split.grad.full_tensor(), whole.grad,
+                               rtol=TOL, atol=TOL)
+    # The gradient stays split as the logits are: nothing was gathered.
+    assert split.grad.placements == (Shard(2),)
+    return "loss"
+
+
+def _rank(rank, store_path, out_dir):
+    done = []
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=2,
+                                store=dist.FileStore(store_path, 2))
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
+        done = [_attention_cases(rank, mesh), _latent_cases(rank, mesh),
+                _loss_cases(rank, mesh)]
+        dist.barrier()
+    except Exception:
+        done = [traceback.format_exc()]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+            f.write("\n".join(done))
+
+
+def test_partitioned_values_equal_the_plain_path(tmp_path):
+    ctx = mp.start_processes(_rank, args=(str(tmp_path / "store"),
+                                          str(tmp_path)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + DEADLINE_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                pytest.fail(f"two ranks still running after {DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    for rank in (0, 1):
+        said = (tmp_path / f"rank{rank}.txt").read_text()
+        assert said == "attention\nlatent\nloss", f"rank {rank}:\n{said}"
