@@ -93,7 +93,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -236,16 +236,23 @@ def gspmd_choices():
     A view that splits a dimension split over a mesh axis into pieces
     that axis does not divide: the input is gathered first, as for a
     reshape, where DTensor's strategy for `view` refuses (it may not
-    move data; GSPMD reshards).
+    move data; GSPMD reshards); and where the reshape would split a new
+    dimension into pieces no device holds whole, the input is gathered
+    further (`_whole_pieces`).
 
     A move from one split dimension to another (an all-to-all): made on
     every device as DTensor makes it for a CPU mesh, an all-gather and
     this rank's slice of it, so the host's trace on the meta device and
-    a run on a card are one program.
+    a run on a card are one program.  For the same reason a strategy
+    that would make a split input a partial sum is not taken (torch
+    2.11 may offer nothing else, and cannot carry it out: the inputs
+    are then replicated on that mesh axis), and `flip` (a cumulative sum's
+    backward), which torch 2.11 has no strategy for, has one here
+    (`_flip_strategy`).
 
-    `_select_min_cost_strategy`, the strategies of `view` and
-    `_unsafe_view`, and `shard_dim_alltoall` are swapped for the trace
-    and restored after it."""
+    `_select_min_cost_strategy`, the strategies of `view`,
+    `_unsafe_view` and `flip`, and `shard_dim_alltoall` are swapped for
+    the trace and restored after it."""
     from itertools import chain
 
     from torch.distributed import _functional_collectives as funcol
@@ -258,24 +265,47 @@ def gspmd_choices():
     moved = placement_types.shard_dim_alltoall
     propagator = DTensor._op_dispatcher.sharding_propagator
     views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
-    strict = {op: (propagator.op_strategy_funcs[op],
-                   propagator.op_to_schema_info.get(op)) for op in views}
+    flip = torch.ops.aten.flip.default
+    strict = {op: (propagator.op_strategy_funcs.get(op),
+                   propagator.op_to_schema_info.get(op))
+              for op in (*views, flip)}
+
+    def wanted(spec, have):
+        return [w.placements for w in
+                (spec.input_specs if spec.input_specs is not None
+                 else [spec.output_spec] * len(have))]
+
+    def unmade(spec, op_schema) -> set:
+        """The mesh axes on which `spec` would make a split input a
+        partial sum."""
+        have = [a.placements for a in op_schema.args_spec]
+        return {m for h, w in zip(have, wanted(spec, have))
+                for m, (a, b) in enumerate(zip(h, w))
+                if a.is_shard() and b.is_partial()}
+
+    def made(spec, op_schema):
+        """`spec`, or where it would make a split input a partial sum
+        (torch 2.11 may offer no other strategy, and cannot carry it
+        out), `spec` with every input and output replicated on those
+        mesh axes: always a strategy, the inputs gathered or reduced."""
+        axes = unmade(spec, op_schema) if op_schema is not None else set()
+        if not axes:
+            return spec
+        return _replicated_on(spec, axes)
 
     def select(strategy, op_schema=None):
         specs = strategy.strategies
         if op_schema is None or len(specs) == 1:
-            return chosen(strategy, op_schema)
+            return made(chosen(strategy, op_schema), op_schema)
         costs = [float(sum(chain.from_iterable(s.redistribute_cost)))
                  for s in specs]
         if min(costs) < 0:           # DTensor's own local-chunking case
-            return chosen(strategy, op_schema)
+            return made(chosen(strategy, op_schema), op_schema)
 
         def key(i):
             spec = specs[i]
             have = [a.placements for a in op_schema.args_spec]
-            want = [w.placements for w in
-                    (spec.input_specs if spec.input_specs is not None
-                     else [spec.output_spec] * len(have))]
+            want = wanted(spec, have)
             split_in = [any(not h[d].is_replicate() for h in have)
                         for d in range(len(have[0]))] if have else []
             # Cutting what every input holds whole on a mesh axis, each
@@ -290,9 +320,11 @@ def gspmd_choices():
             parts = math.prod(n for p, n in zip(
                 out.placements, out.mesh.shape) if p.is_shard()) \
                 if out is not None else 1
-            return (math.isinf(costs[i]), invented, changes, -parts,
-                    costs[i])
-        return specs[min(range(len(specs)), key=key)]
+            # A split input made a partial sum: DTensor cannot carry it
+            # out (torch 2.11 prices it finite); last, as the infinite.
+            return (math.isinf(costs[i]) or bool(unmade(spec, op_schema)),
+                    invented, changes, -parts, costs[i])
+        return made(specs[min(range(len(specs)), key=key)], op_schema)
 
     gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
 
@@ -308,15 +340,130 @@ def gspmd_choices():
     for op in views:
         _view_ops.register_op_strategy_map(op, torch.Tensor.view,
                                            schema_info=RuntimeSchemaInfo(1))
+        propagator.op_strategy_funcs[op] = _whole_pieces(
+            propagator.op_strategy_funcs[op])
+    propagator.register_op_strategy(flip, _flip_strategy,
+                                    RuntimeSchemaInfo(1))
     try:
         yield
     finally:
         prop._select_min_cost_strategy = chosen
         placement_types.shard_dim_alltoall = moved
         for op, (func, info) in strict.items():
-            propagator.op_strategy_funcs[op] = func
-            if info is not None:
+            if func is None:
+                propagator.op_strategy_funcs.pop(op, None)
+            else:
+                propagator.op_strategy_funcs[op] = func
+            if info is None:
+                propagator.op_to_schema_info.pop(op, None)
+            else:
                 propagator.op_to_schema_info[op] = info
+
+
+def _with_placements(spec, placements):
+    """The DTensor spec `spec` with `placements` (its shard order, where
+    the torch has one, made anew)."""
+    return dataclasses.replace(
+        spec, placements=tuple(placements),
+        **({"shard_order": None} if hasattr(spec, "shard_order") else {}))
+
+
+def _replicated_on(spec, axes):
+    """The op strategy `spec` with every input and output placement on
+    the mesh axes `axes` replicated."""
+    from torch.distributed.tensor._op_schema import OpSpec
+
+    def replicated(s):
+        if s is None:
+            return None
+        return _with_placements(s, [Replicate() if m in axes else p
+                                    for m, p in enumerate(s.placements)])
+    out = spec.output_specs
+    out = (tuple(replicated(o) for o in out)
+           if isinstance(out, (tuple, list)) else replicated(out))
+    return OpSpec(output_specs=out,
+                  input_specs=(None if spec.input_specs is None else
+                               tuple(replicated(s)
+                                     for s in spec.input_specs)),
+                  redistribute_cost=spec.redistribute_cost)
+
+
+def _flip_strategy(op_schema):
+    """`flip`'s strategy: each input placement kept, but a dimension the
+    flip reverses is gathered first (a device's part of it would be
+    another device's)."""
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    src, dims = op_schema.args_schema[:2]
+    flipped = {d % len(src.shape) for d in dims}
+    out = []
+    for have in src.strategies:
+        spec = have.output_spec
+        places = tuple(Replicate() if p.is_shard() and p.dim in flipped
+                       else p for p in spec.placements)
+        want = DTensorSpec(spec.mesh, places, tensor_meta=spec.tensor_meta)
+        out.append(OpSpec(output_specs=DTensorSpec(spec.mesh, places),
+                          input_specs=(want,),
+                          redistribute_cost=[
+                              generate_redistribute_costs(src, want)]))
+    return OpStrategy(out)
+
+
+def _whole_pieces(reshape: Callable) -> Callable:
+    """`reshape`, DTensor's strategy for a reshape, made to split a new
+    dimension only into pieces every device holds whole.
+
+    DTensor checks a dimension made from a split one against each mesh
+    axis that splits it, one at a time, not against their product: (1,
+    131072, D) split over data and model (256 ways) viewed as (32, 4096,
+    D) would give a batch of 32 split 256 ways, which no device's local
+    view can hold.  Where a new dimension is split over more than one
+    axis and their product does not divide it, the input is gathered
+    over the last of those axes and the view propagated again, as GSPMD
+    reshards a reshape."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops._view_ops import InputDim, dim_maps
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    def overcut(spec, rules, shape) -> Optional[int]:
+        """The last mesh axis of an output dimension a split made (not
+        one the view keeps as it is) that its axes cut unevenly."""
+        mesh_shape = spec.mesh.shape
+        for d, cmd in enumerate(rules):
+            axes = [m for m, p in enumerate(spec.placements)
+                    if p.is_shard() and p.dim == d]
+            if (len(axes) > 1 and not isinstance(cmd, InputDim)
+                    and shape[d] % math.prod(mesh_shape[m] for m in axes)):
+                return axes[-1]
+        return None
+
+    def strategy(op_schema):
+        out = reshape(op_schema)
+        src, size = op_schema.args_schema[:2]
+        rules = dim_maps[torch.Tensor.view](src, size)
+        known = math.prod(n for n in size if n != -1)
+        shape = [math.prod(src.shape) // known if n == -1 else n
+                 for n in size]
+        fitted = []
+        for spec, have in zip(out.strategies, src.strategies):
+            while (axis := overcut(spec.output_spec, rules, shape)) \
+                    is not None:
+                want = list(spec.input_specs[0].placements)
+                want[axis] = Replicate()
+                gathered = _with_placements(have.output_spec, want)
+                (spec,) = reshape(dataclasses.replace(
+                    op_schema, args_schema=(OpStrategy([OpSpec(gathered)]),
+                                            *op_schema.args_schema[1:])
+                )).strategies
+                spec.redistribute_cost = [
+                    generate_redistribute_costs(src, spec.input_specs[0])]
+            fitted.append(spec)
+        return OpStrategy(fitted)
+    return strategy
 
 
 def on_rank(tree, shardings, device_mesh, device="meta"):

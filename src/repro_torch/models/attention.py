@@ -106,7 +106,10 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
     """Boolean (..., Sq, Skv) mask; True = attend.
 
     q_pos: (B, Sq) token positions of queries; kv_pos: (B, Skv).
-    window: sliding-window size (attend iff q_pos - kv_pos < window).
+    window: sliding-window size (attend iff q_pos - kv_pos < window,
+    compared as kv_pos > q_pos - window: the (B, Sq, 1) shift broadcasts
+    into the boolean mask, and no integer (B, Sq, Skv) difference is
+    made).
     kv_len: (B,) valid cache length for decode.
     """
     q = q_pos[:, :, None]
@@ -117,7 +120,7 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
     if causal:
         m &= k <= q
     if window is not None:
-        m &= (q - k) < window
+        m &= k > q - window
     if kv_len is not None:
         m &= k < kv_len[:, None, None]
     return m

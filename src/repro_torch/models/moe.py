@@ -55,40 +55,44 @@ def route(logits: torch.Tensor, cfg: MoEConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing with capacity.
 
-    logits: (T, E).  Returns (dispatch (T, E, C) {0,1} float,
-    combine (T, E, C) float, aux_loss scalar).
+    logits: (..., T, E), the leading dimensions routing groups, each
+    routed alone (the reference's `jax.vmap(route)` over its groups).
+    Returns (dispatch (..., T, E, C) {0,1} float, combine (..., T, E, C)
+    float, aux_loss (...)).
     """
-    t = logits.shape[0]
+    t = logits.shape[-2]
     e = cfg.num_experts
+    k = cfg.top_k
     c = capacity(t, cfg)
+    groups = logits.shape[:-2]
     probs = torch.softmax(logits.float(), dim=-1)
 
-    gate_vals, gate_idx = _top_k(probs, cfg.top_k)             # (T, K)
+    gate_vals, gate_idx = _top_k(probs, k)                     # (.., T, K)
     if cfg.normalize_weights:
         gate_vals = gate_vals / torch.clamp_min(
             gate_vals.sum(-1, keepdim=True), 1e-9)
     gate_vals = gate_vals * cfg.routed_scale
 
     # Position of each (token, k) assignment in its expert's buffer.
-    onehot = _one_hot(gate_idx, e)                              # (T, K, E)
+    onehot = _one_hot(gate_idx, e)                             # (.., T, K, E)
     # Priority: k-th choice of earlier tokens first (standard GSPMD order).
-    flat = onehot.transpose(0, 1).reshape(cfg.top_k * t, e)     # (K*T, E)
-    pos_flat = torch.cumsum(flat, dim=0) - flat                 # slots used
-    pos = pos_flat.reshape(cfg.top_k, t, e).transpose(0, 1)     # (T, K, E)
+    flat = onehot.transpose(-3, -2).reshape(*groups, k * t, e)
+    pos_flat = torch.cumsum(flat, dim=-2) - flat               # slots used
+    pos = pos_flat.reshape(*groups, k, t, e).transpose(-3, -2)
     within_cap = (pos < c) & (onehot > 0)
 
     slot_onehot = _one_hot((pos * onehot).sum(-1).to(torch.int64), c)
-    keep = within_cap.any(-1)                                   # (T, K)
-    dispatch = torch.einsum("tke,tkc->tec", onehot * keep[..., None],
-                            slot_onehot)
-    combine = torch.einsum("tke,tkc->tec",
+    keep = within_cap.any(-1)                                  # (.., T, K)
+    dispatch = torch.einsum("...tke,...tkc->...tec",
+                            onehot * keep[..., None], slot_onehot)
+    combine = torch.einsum("...tke,...tkc->...tec",
                            onehot * (gate_vals * keep)[..., None],
                            slot_onehot)
 
     # Load-balancing auxiliary loss (Switch/GShard form).
-    me = probs.mean(0)                                          # (E,)
-    ce = onehot.sum(1).mean(0)                                  # frac routed
-    aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
+    me = probs.mean(-2)                                        # (.., E)
+    ce = onehot.sum(-2).mean(-2)                               # frac routed
+    aux = cfg.aux_loss_coef * e * torch.sum(me * ce, dim=-1)
     return dispatch, combine, aux
 
 
@@ -121,10 +125,8 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: MoEConfig, act,
     g = t // gs
     xg = xt.reshape(g, gs, d)
     logits = torch.einsum("gtd,de->gte", xg, p["router"])
-    routed = [route(lg, cfg) for lg in logits]
-    dispatch = torch.stack([r[0] for r in routed])
-    combine = torch.stack([r[1] for r in routed])
-    aux = torch.stack([r[2] for r in routed]).mean()
+    dispatch, combine, aux = route(logits, cfg)
+    aux = aux.mean()
     # (g, gs, E, C) one-hots in compute dtype: values are {0,1} / gate
     # weights, bf16 is exact for the former and ample for the latter.
     dispatch = dispatch.to(x.dtype)

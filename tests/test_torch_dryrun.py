@@ -101,6 +101,28 @@ def outcome(fn, *args):
 # ------------------------------------------------------- cells
 
 
+# 16x16 cells the partitioned trace once failed on, by their cause: the
+# MoE dispatch's groups split over the data axis, a view of rwkv6's
+# d_model split over both mesh axes, whisper's 1500 frames, which 16 does
+# not divide.  These trace in about 30 s or less each on one core; the
+# train steps of qwen2-moe-a2.7b, deepseek-v2-lite-16b and rwkv6-7b take
+# longer and are traced by chip_smoke.py (phase 11c).
+REPAIRED = [("qwen2-moe-a2.7b", "prefill_32k"),
+            ("deepseek-v2-lite-16b", "prefill_32k"),
+            ("rwkv6-7b", "long_500k"), ("whisper-small", "train_4k"),
+            ("whisper-small", "prefill_32k"), ("whisper-small", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", REPAIRED)
+def test_repaired_cell_traces_partitioned(arch, shape):
+    rec = dryrun.lower_cell(arch, shape, False)
+    assert rec["status"] == "OK", rec
+    assert (rec["partitioned"], rec["trace_scope"]) == (True, "device")
+    assert rec["memory"]["peak_per_device_gib"] > 0
+    assert rec["cost"]["flops"] > 0
+    assert rec["collectives_traced"]["total"] > 0
+
+
 def test_lowering_every_cell():
     rs = dryrun.run_cells(ARCH_IDS, list(shapes.SHAPES), [False, True],
                           None, compile_=False)
@@ -113,7 +135,8 @@ def test_lowering_every_cell():
                              "shape", "status"]
 
 
-MINI = ["gemma3-1b", "rwkv6-7b", "deepseek-v2-lite-16b"]
+MINI = ["gemma3-1b", "rwkv6-7b", "deepseek-v2-lite-16b", "qwen2-moe-a2.7b",
+        "whisper-small"]
 MINI_SHAPE = ("mini", 64, 8, "train")
 # The mini cells, each (shape, attn_kv_chunk or None for the config's):
 # the train step, a prefill of 64 tokens, a decode step over 64 slots
@@ -123,6 +146,33 @@ MINI_CELLS = {"train": (MINI_SHAPE, None),
               "prefill": (("mini", 64, 8, "prefill"), None),
               "decode": (("mini", 64, 8, "decode"), None),
               "decode_chunked": (("mini", 256, 8, "decode"), 32)}
+# Where an arch's cell differs: qwen2-moe trains 32 x 256 tokens, four
+# routing groups of GROUP_SIZE (2048), one on each (pod, data) rank, so
+# the groups are routed split, as in its production train_4k and
+# prefill_32k cells.
+MINI_SHAPES = {("qwen2-moe-a2.7b", "train"): ("mini", 256, 32, "train")}
+# whisper's encoder frames at mini size, which the model axis (2) does
+# not divide, as 16 does not divide its production cells' 1500.
+MINI_ENC_SEQ = 15
+
+
+def mini_cells(arch):
+    """`MINI_CELLS` with `arch`'s own shapes."""
+    return {cell: (MINI_SHAPES.get((arch, cell), shape), kv_chunk)
+            for cell, (shape, kv_chunk) in MINI_CELLS.items()}
+
+
+def mini_config(cfg, kv_chunk):
+    """The mini cell's config from `cfg` (an arch's `smoke()`, the port's
+    or the reference's): `kv_chunk` if given, whisper's MINI_ENC_SEQ
+    frames."""
+    if kv_chunk:
+        cfg = dataclasses.replace(cfg, attn_kv_chunk=kv_chunk)
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, enc_dec=dataclasses.replace(
+            cfg.enc_dec, enc_seq=MINI_ENC_SEQ))
+    return cfg
+
 
 REF_MINI = textwrap.dedent("""
     import dataclasses, os, json, math, re
@@ -220,12 +270,15 @@ REF_MINI = textwrap.dedent("""
             "collectives": collective_bytes(hlo),
             "largest": largest(hlo)}}
 
-    for arch in {archs!r}:
+    for arch, cells in {cells!r}.items():
         out[arch] = {{}}
-        for cell, (shape, kv_chunk) in {cells!r}.items():
+        for cell, (shape, kv_chunk) in cells.items():
             cfg = get_config(arch, smoke=True)
             if kv_chunk:
                 cfg = dataclasses.replace(cfg, attn_kv_chunk=kv_chunk)
+            if cfg.is_encdec:
+                cfg = dataclasses.replace(cfg, enc_dec=dataclasses.replace(
+                    cfg.enc_dec, enc_seq={enc_seq}))
             out[arch][cell] = compile_cell(cfg, ShapeSpec(*shape))
     print(json.dumps(out))
 """)
@@ -250,6 +303,27 @@ GATHER_TO_REF = (0.45, 1.6)
 FLOPS_TO_REF = (0.55, 1.0)
 MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
                "alias_bytes", "peak_per_device_gib"}
+# The checks each mini cell is held to against XLA: "largest" (no
+# all-gather above XLA's largest), "gather" (GATHER_TO_REF), "flops"
+# (FLOPS_TO_REF, on cells whose XLA program has no loop: gemma3's
+# layers are unscanned, so its prefill and decode HLO holds each once).
+# qwen2-moe and whisper, measured first, are held where they lie inside
+# the bands; outside them (ROADMAP Queue 3): qwen2-moe's all-gather
+# 22.6 / 3.50 / 1.79 / 3.92 x XLA's (train / prefill / decode / chunked
+# decode), its train's largest 41,943,040 B against 524,288 (the
+# dispatch's move between split dimensions traced as a gather);
+# whisper's all-gather 2.39 train, 1.92 decode and chunked decode.
+# rwkv6 and deepseek are printed.
+HELD_TO_REF = {
+    "gemma3-1b": {"train": ("largest", "gather"),
+                  "prefill": ("largest", "gather", "flops"),
+                  "decode": ("largest", "gather", "flops"),
+                  "decode_chunked": ("largest", "gather")},
+    "qwen2-moe-a2.7b": {"prefill": ("largest",), "decode": ("largest",),
+                        "decode_chunked": ("largest",)},
+    "whisper-small": {cell: ("largest",) + (("gather",)
+                                            if cell == "prefill" else ())
+                      for cell in MINI_CELLS}}
 
 
 @pytest.fixture(scope="module")
@@ -258,10 +332,8 @@ def mini_records():
     port = {}
     for arch in MINI:
         port[arch] = {}
-        for cell, (shape, kv_chunk) in MINI_CELLS.items():
-            cfg = get_config(arch, smoke=True)
-            if kv_chunk:
-                cfg = dataclasses.replace(cfg, attn_kv_chunk=kv_chunk)
+        for cell, (shape, kv_chunk) in mini_cells(arch).items():
+            cfg = mini_config(get_config(arch, smoke=True), kv_chunk)
             memo = {}
             rec = dryrun.lower(cfg, ShapeSpec(*shape), mesh, memo=memo)
             # The trace's largest collective result of each kind, over
@@ -272,7 +344,9 @@ def mini_records():
                     largest[kind] = max(largest.get(kind, 0), n)
             port[arch][cell] = (rec, largest)
     port["cuda"] = torch.cuda.is_initialized()
-    ref = _child(REF_MINI.format(archs=MINI, cells=MINI_CELLS))
+    ref = _child(REF_MINI.format(
+        cells={arch: mini_cells(arch) for arch in MINI},
+        enc_seq=MINI_ENC_SEQ))
     return port, ref
 
 
@@ -323,17 +397,54 @@ def test_traced_mini_cell(arch, mini_records):
 INDEX_BYTES = 4
 
 
+def unread_bytes(cfg, shape, mesh):
+    """The (argument, aliased) bytes, as the port holds them, that XLA's
+    compiled serving step of `cfg` at `shape` on `mesh` drops because the
+    step never reads them.  A prefill drops a donated cache leaf it
+    overwrites whole: a decoder-only GQA model's whole cache (the prompt
+    fills every slot; gemma3's ring is zeroed first), whisper's
+    cross-attention cache (written by `start_cache`).  whisper's decode
+    step never reads the encoder's weights or the cross-attention's key
+    and value projections (the cache holds their outputs), which jit
+    drops from its arguments."""
+    rules = dryrun._shape_rules(train.make_rules(cfg, mesh), shape, mesh,
+                                cfg)
+    model = build(cfg)
+    cache = serve_lib.abstract_cache(model, shape.global_batch,
+                                     shape.seq_len)
+    c_shard = serve_lib.cache_shardings(cache, mesh, rules)
+    if shape.kind == "prefill" and cfg.is_encdec:
+        cross = sum(dryrun.local_bytes(cache[k], c_shard[k])
+                    for k in ("cross_k", "cross_v"))
+        return cross, cross
+    if shape.kind == "prefill" and cfg.mixer == "gqa":
+        whole = dryrun.local_bytes(cache, c_shard)
+        return whole, whole
+    if shape.kind == "decode" and cfg.is_encdec:
+        specs = model.param_specs()
+        params = param_shapes(specs)
+        p_shard = dryrun._param_shardings(specs, rules, mesh)
+        unread = 0
+        for path in (("enc_layers",), ("enc_final_norm",),
+                     ("dec_layers", "cross_attn", "wk"),
+                     ("dec_layers", "cross_attn", "wv")):
+            t, sh = params, p_shard
+            for k in path:
+                t, sh = t[k], sh[k]
+            unread += dryrun.local_bytes(t, sh)
+        return unread, 0
+    return 0, 0
+
+
 @pytest.mark.parametrize("cell", sorted(MINI_CELLS))
 @pytest.mark.parametrize("arch", MINI)
 def test_mini_cell_against_xla(arch, cell, mini_records):
     """Every mini cell beside the reference's compiled one: argument and
-    alias bytes as the two programs hold them; for gemma3 (whose layers
-    are unscanned, so XLA's HLO holds each once) no all-gather larger
-    than XLA's largest (no logits gathered in train, no cache gathered
-    per chunk in decode), the traced all-gather bytes within
-    GATHER_TO_REF of XLA's, and on the cells with no loop in XLA's
-    program the FLOPs within FLOPS_TO_REF.  rwkv6 and deepseek print the
-    same comparison."""
+    alias bytes as the two programs hold them; and the checks of
+    HELD_TO_REF: no all-gather larger than XLA's largest, the traced
+    all-gather bytes within GATHER_TO_REF of XLA's, and on the cells with
+    no loop in XLA's program the FLOPs within FLOPS_TO_REF.  Each cell
+    prints the whole comparison."""
     port, ref = mini_records
     (rec, largest), xla = port[arch][cell], ref[arch][cell]
     kind = MINI_CELLS[cell][0][3]
@@ -343,14 +454,12 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     if kind == "train":
         assert held == (mem["argument_bytes"], mem["alias_bytes"])
     else:
-        kept = (mem["argument_bytes"] + INDEX_BYTES,
-                mem["alias_bytes"] + INDEX_BYTES)
-        dropped = (mem["argument_bytes"] - mem["alias_bytes"] + INDEX_BYTES,
-                   INDEX_BYTES)
-        # gemma3's prefill zeroes its cache before writing it (its
-        # attention cache is a ring); the others read theirs.
-        assert held == (dropped if (arch, kind) == ("gemma3-1b", "prefill")
-                        else kept)
+        shape, kv_chunk = mini_cells(arch)[cell]
+        args_unread, alias_unread = unread_bytes(
+            mini_config(get_config(arch, smoke=True), kv_chunk),
+            ShapeSpec(*shape), make_mesh((2, 2, 2), ("pod", "data", "model")))
+        assert held == (mem["argument_bytes"] - args_unread + INDEX_BYTES,
+                        mem["alias_bytes"] - alias_unread + INDEX_BYTES)
     gather = rec["collectives_traced"].get("all-gather", 0.0)
     ref_gather = xla["collectives"].get("all-gather", 0.0)
     big, ref_big = (largest.get("all-gather", 0),
@@ -366,11 +475,12 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
           f"all-gather {big} B, XLA's {ref_big}; flops {flops:.4e}, XLA's "
           f"{ref_flops:.4e} (ratio {flops / ref_flops:.3f}); peak {peak} "
           f"B, XLA's {ref_peak} (ratio {peak / ref_peak:.3f})")
-    if arch != "gemma3-1b":
-        return
-    assert 0 < big <= ref_big
-    assert GATHER_TO_REF[0] <= gather / ref_gather <= GATHER_TO_REF[1]
-    if cell in ("prefill", "decode"):
+    held = HELD_TO_REF.get(arch, {}).get(cell, ())
+    if "largest" in held:
+        assert 0 < big <= ref_big
+    if "gather" in held:
+        assert GATHER_TO_REF[0] <= gather / ref_gather <= GATHER_TO_REF[1]
+    if "flops" in held:
         assert FLOPS_TO_REF[0] <= flops / ref_flops <= FLOPS_TO_REF[1]
 
 

@@ -25,6 +25,15 @@ dryrun.lower_cell`).  Held:
 gemma3-1b train_4k takes about two minutes to compile, too long for this
 tier; the loss and training collectives are held on the mini cells
 (tests/test_torch_dryrun.py).
+
+The families whose partitioned trace once failed (whisper's 1500 frames,
+rwkv6's views of a split d_model, the MoE dispatch's split groups) are
+held at one production cell each (REPAIRED, each compiles in seconds):
+argument and aliased bytes exactly as the two programs hold them (XLA's
++ 4 B of `index`, less what the step never reads, which jit drops), and
+the peak in REPAIRED_PEAK_BAND measured here.  Their all-gathers are
+printed beside XLA's, not held: they lie outside GATHER_BAND (ROADMAP
+Queue 3), and the mini cells hold what those families move at mini size.
 """
 import json
 import os
@@ -36,6 +45,9 @@ import pytest
 
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.shapes import SHAPES
+from test_torch_dryrun import unread_bytes
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -49,6 +61,16 @@ GATHER_BAND = (0.8, 1.25)
 # Peak over XLA's, measured first: gemma3 0.886, mistral 0.405.
 PEAK_BAND = {"gemma3-1b": (0.8, 1.0), "mistral-large-123b": (0.36, 0.45)}
 
+REPAIRED = (("whisper-small", "decode_32k"), ("rwkv6-7b", "long_500k"),
+            ("qwen2-moe-a2.7b", "train_4k"))
+# Peak over XLA's, measured first (torch 2.13 on the CPU): whisper 0.319
+# (XLA keeps float32 copies of the cross-attention cache), rwkv6 2.755
+# (the port gathers the weights a token's projections read; XLA keeps
+# them split and all-reduces the token's products), qwen2-moe 1.911.
+REPAIRED_PEAK_BAND = {"whisper-small": (0.28, 0.36),
+                      "rwkv6-7b": (2.4, 3.1),
+                      "qwen2-moe-a2.7b": (1.7, 2.15)}
+
 REF = textwrap.dedent("""
     import json, os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
@@ -58,17 +80,28 @@ REF = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def records():
+def _both(cells):
+    """The reference's records of `cells` (compiled in a child with 512
+    placeholder devices) and the port's, keyed "arch|shape"."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    proc = subprocess.run([sys.executable, "-c", REF.format(cells=CELLS)],
+    proc = subprocess.run([sys.executable, "-c", REF.format(cells=cells)],
                           env=env, cwd=ROOT, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
     ref = json.loads(proc.stdout.strip().splitlines()[-1])
-    port = {f"{a}|{s}": dryrun.lower_cell(a, s, False) for a, s in CELLS}
+    port = {f"{a}|{s}": dryrun.lower_cell(a, s, False) for a, s in cells}
     return port, ref
+
+
+@pytest.fixture(scope="module")
+def records():
+    return _both(CELLS)
+
+
+@pytest.fixture(scope="module")
+def repaired_records():
+    return _both(REPAIRED)
 
 
 def _peak(mem):
@@ -99,6 +132,39 @@ def test_production_cell_against_xla(arch, shape, records):
     assert GATHER_BAND[0] <= traced / want <= GATHER_BAND[1]
     assert GATHER_BAND[0] <= analytic / want <= GATHER_BAND[1]
     lo, hi = PEAK_BAND[arch]
+    assert lo <= peak / ref_peak <= hi
+
+
+@pytest.mark.parametrize("arch,shape", REPAIRED)
+def test_repaired_cell_against_xla(arch, shape, repaired_records):
+    port, ref = repaired_records
+    rec, xla = port[f"{arch}|{shape}"], ref[f"{arch}|{shape}"]
+    assert rec["status"] == xla["status"] == "OK" and rec["partitioned"]
+    assert rec["trace_scope"] == "device"
+    mem, x = rec["memory"], xla["memory"]
+    cfg, spec = get_config(arch), SHAPES[shape]
+    if spec.kind == "train":
+        assert (x["argument_bytes"], x["alias_bytes"]) == \
+            (mem["argument_bytes"], mem["alias_bytes"])
+    else:
+        args_unread, alias_unread = unread_bytes(
+            cfg, spec, make_production_mesh(multi_pod=False))
+        assert (x["argument_bytes"], x["alias_bytes"]) == (
+            mem["argument_bytes"] - args_unread + INDEX_BYTES,
+            mem["alias_bytes"] - alias_unread + INDEX_BYTES)
+    peak, ref_peak = _peak(mem), _peak(x)
+    scanned = cfg.scan_layers and not cfg.moe_dense_layers
+    per = (rec.get("n_micro", 1) if spec.kind == "train" else 1) * \
+        (cfg.num_layers if scanned else 1)
+    traced = rec["collectives_traced"].get("all-gather", 0.0) / per
+    want = xla["collectives"]["all-gather"]
+    unit = "layer of a microbatch" if spec.kind == "train" else "layer"
+    print(f"{arch} {shape}: peak {peak / 2**30:.3f} GiB, XLA's "
+          f"{ref_peak / 2**30:.3f} GiB (ratio {peak / ref_peak:.3f}); "
+          f"traced all-gather {traced:.0f} B a {unit}, XLA's {want:.0f} B "
+          f"(ratio {traced / want:.3f}); argument bytes "
+          f"{mem['argument_bytes']}, XLA's {x['argument_bytes']}")
+    lo, hi = REPAIRED_PEAK_BAND[arch]
     assert lo <= peak / ref_peak <= hi
 
 

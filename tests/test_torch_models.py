@@ -264,6 +264,40 @@ class TestMask:
                                else None)
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
+    @pytest.mark.parametrize("seed", range(4))
+    def test_window_compares_without_a_difference(self, seed):
+        """The window term compares kv > q - window: the same mask as the
+        difference (q - kv) < window on random positions (slot -1, the
+        int64 range's ends) and windows, and the mask stays boolean with
+        no integer (B, Sq, Skv) tensor in between."""
+        rng = np.random.default_rng(40 + seed)
+        q_pos = rng.integers(0, 1 << 20, (3, 7))
+        kv_pos = rng.integers(-1, 1 << 20, (3, 11))
+        kv_pos[0, :3] = q_pos[0, :3]                # zero distance
+        q, kv = torch.from_numpy(q_pos), torch.from_numpy(kv_pos)
+        made = []
+
+        class Made(torch.utils._python_dispatch.TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if isinstance(out, torch.Tensor):
+                    made.append((tuple(out.shape), out.dtype))
+                return out
+
+        for window in (1, 2, int(rng.integers(3, 1 << 20)), 1 << 21):
+            for causal in (True, False):
+                made.clear()
+                with Made():
+                    got = t_attn.make_mask(q, kv, causal=causal,
+                                           window=window)
+                want = (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+                if causal:
+                    want &= kv_pos[:, None, :] <= q_pos[:, :, None]
+                np.testing.assert_array_equal(got.numpy(), want)
+                assert got.dtype == torch.bool
+                assert (3, 7, 11) not in [sh for sh, dt in made
+                                          if dt != torch.bool]
+
 
 def _attention_case(seed, b, sq, skv, h, kh, d, dv, mask_kind):
     rng = np.random.default_rng(seed)
@@ -447,6 +481,43 @@ class TestMoE:
         close(tcmb, rcmb)
         close(taux, raux)
         assert t_moe.capacity(t, _port_moe(cfg)) == r_moe.capacity(t, cfg)
+
+    @pytest.mark.parametrize("cfg,groups,t", [
+        (MOE, (3,), 32),
+        (r_moe.MoEConfig(num_experts=2, top_k=1, expert_d_ff=8,
+                         capacity_factor=0.25), (4,), 64),    # drops
+        (r_moe.MoEConfig(num_experts=6, top_k=3, expert_d_ff=8,
+                         normalize_weights=False, routed_scale=2.5),
+         (2, 3), 20),                                     # two group dims
+    ])
+    def test_batched_route_equals_the_per_group_loop(self, cfg, groups, t):
+        """`route` over (..., T, E) routes each group alone: dispatch and
+        combine equal the per-group calls exactly (each (token, expert,
+        slot) entry has one nonzero term), and the aux loss within
+        1e-6 (a batched mean may sum in another order); all three equal
+        the reference's `jax.vmap(route)`."""
+        logits = rnd(63, (*groups, t, cfg.num_experts), 2.0)
+        port = _port_moe(cfg)
+        d, c, aux = t_moe.route(torch.from_numpy(logits), port)
+        flat = logits.reshape(-1, t, cfg.num_experts)
+        loop = [t_moe.route(torch.from_numpy(lg), port) for lg in flat]
+        assert d.shape == (*groups, t, cfg.num_experts,
+                           t_moe.capacity(t, port))
+        assert aux.shape == groups
+        for got, i in ((d, 0), (c, 1)):
+            torch.testing.assert_close(
+                got.reshape(-1, *got.shape[len(groups):]),
+                torch.stack([r[i] for r in loop]), rtol=0, atol=0)
+        torch.testing.assert_close(
+            aux.reshape(-1), torch.stack([r[2] for r in loop]),
+            rtol=1e-6, atol=1e-6)
+        vmapped = jax.vmap(lambda lg: r_moe.route(lg, cfg))
+        for _ in groups[1:]:
+            vmapped = jax.vmap(vmapped)
+        rd, rc, raux = jax.jit(vmapped)(jnp.asarray(logits))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(rd))
+        close(c, rc)
+        close(aux, raux)
 
     def test_capacity_drops_counted(self):
         cfg = r_moe.MoEConfig(num_experts=2, top_k=1, expert_d_ff=8,

@@ -14,7 +14,11 @@ tensors in float32 (rtol = atol = 1e-5):
   whose slots are split, its weights' heads split
   (`models.attention._latent_attention_split`);
 * the loss over vocab-split logits (`launch.train.lm_loss`): its value
-  and the gradient of the logits.
+  and the gradient of the logits;
+* the MoE FFN (`models.moe.moe_ffn`) over a batch split as the data axis
+  splits it, four routing groups routed at once (two a rank), its
+  experts and shared FFN split as the model axis splits them: the
+  output and the aux loss, the mean over the groups of both ranks.
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
@@ -30,9 +34,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.launch import train
 from repro_torch.models import attention as attn
+from repro_torch.models import common, moe
 
 TOL = 1e-5
 DEADLINE_S = 120
@@ -127,6 +133,40 @@ def _loss_cases(rank, mesh):
     return "loss"
 
 
+def _moe_cases(rank, mesh):
+    b, s, d, group = 4, 8, 8, 8          # four groups of 8 tokens
+    cfg = moe.MoEConfig(num_experts=4, top_k=2, expert_d_ff=6,
+                        num_shared=1, shared_d_ff=6, capacity_factor=1.0)
+    rng = np.random.default_rng(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape, dtype=np.float32))
+
+    x = randn(b, s, d)
+    p = {"router": randn(d, 4, scale=2.0), "w_gate": randn(4, d, 6),
+         "w_up": randn(4, d, 6), "w_down": randn(4, 6, d),
+         "shared_gate": randn(d, 6), "shared_up": randn(d, 6),
+         "shared_down": randn(6, d)}
+    act = common.ACTIVATIONS["silu"]
+    want, want_aux = moe.moe_ffn(x, p, cfg, act, group_size=group)
+    split = {"router": [Replicate()], "w_gate": [Shard(0)],
+             "w_up": [Shard(0)], "w_down": [Shard(0)],
+             "shared_gate": [Shard(1)], "shared_up": [Shard(1)],
+             "shared_down": [Shard(0)]}
+    # Under implicit replication, as the dry run's step runs: the
+    # routing's aranges are plain tensors.
+    with implicit_replication():
+        got, aux = moe.moe_ffn(
+            distribute_tensor(x, mesh, [Shard(0)]),
+            {k: distribute_tensor(t, mesh, split[k]) for k, t in p.items()},
+            cfg, act, group_size=group)
+    torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(aux.full_tensor(), want_aux, rtol=TOL,
+                               atol=TOL)
+    return "moe"
+
+
 def _rank(rank, store_path, out_dir):
     done = []
     try:
@@ -134,7 +174,7 @@ def _rank(rank, store_path, out_dir):
                                 store=dist.FileStore(store_path, 2))
         mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
         done = [_attention_cases(rank, mesh), _latent_cases(rank, mesh),
-                _loss_cases(rank, mesh)]
+                _loss_cases(rank, mesh), _moe_cases(rank, mesh)]
         dist.barrier()
     except Exception:
         done = [traceback.format_exc()]
@@ -160,4 +200,5 @@ def test_partitioned_values_equal_the_plain_path(tmp_path):
                 p.kill()
     for rank in (0, 1):
         said = (tmp_path / f"rank{rank}.txt").read_text()
-        assert said == "attention\nlatent\nloss", f"rank {rank}:\n{said}"
+        assert said == "attention\nlatent\nloss\nmoe", \
+            f"rank {rank}:\n{said}"
