@@ -34,10 +34,13 @@ shape, not ring traffic):
 
 That is what the reference's partitioned HLO holds for these cells
 (`hlo_analysis.collective_bytes`): XLA combines a cache it scores whole
-and gathers one it scans in chunks, hoisted out of the scan.  MLA's
-chunked decode is not counted: XLA moves its expanded keys and values
-from the sequence to the heads (an all-to-all), which the latent
-cache's placements do not give (the port gathers the latent instead).
+and gathers one it scans in chunks, hoisted out of the scan.  No
+all-to-all is counted here, as the placements of the parameters and
+the cache do not give one: XLA's moves of activations between split
+dimensions (the MoE dispatch's, MLA's chunked decode, which moves its
+expanded keys and values from the sequence to the heads where the
+port gathers the latent) are in the partitioned trace's
+"collectives_traced" instead, where the port makes them.
 
 The dict keeps the reference's schema: bytes per op kind, "total", and
 "<op>_count".  `remat_duplication` is the ratio of matrix products

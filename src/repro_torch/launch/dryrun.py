@@ -43,7 +43,9 @@ a DeviceMesh of the cell's shape and axis names, its local tensor rank
 trace counts is rank 0's local ops and collectives (`one_rank`,
 `trace_step`).  The process group is a one-rank fake group that lives
 only inside the trace.  DTensor's propagation decides how each op is
-split, with the choices `gspmd_choices` makes GSPMD-like; where it
+split, with the choices `gspmd_choices` makes GSPMD-like, but for the
+models' batched products, which `models.common.contract` splits as
+GSPMD splits a dot (batch and heads both kept split); where DTensor
 gathers what GSPMD would keep split, the figures are this program's
 own.  Every record says "trace_scope": "device", and "partitioned"
 which trace ran.  A partitioned op costs several times a plain one's
@@ -240,15 +242,18 @@ def gspmd_choices():
     dimension into pieces no device holds whole, the input is gathered
     further (`_whole_pieces`).
 
-    A move from one split dimension to another (an all-to-all): made on
-    every device as DTensor makes it for a CPU mesh, an all-gather and
-    this rank's slice of it, so the host's trace on the meta device and
-    a run on a card are one program.  For the same reason a strategy
-    that would make a split input a partial sum is not taken (torch
-    2.11 may offer nothing else, and cannot carry it out: the inputs
-    are then replicated on that mesh axis), and `flip` (a cumulative sum's
-    backward), which torch 2.11 has no strategy for, has one here
-    (`_flip_strategy`).
+    A move from one split dimension to another is an all-to-all over the
+    mesh axis's group, as GSPMD emits it: the local tensor cut into one
+    chunk a device along the new split dimension, the chunks exchanged
+    (`all_to_all_single`) and joined along the old one, so each device
+    holds its part, not the whole (DTensor's own path for a CPU mesh
+    gathers the whole and slices it).  It is the same on the meta device
+    and on a card, so the host's trace and `run_on_rank` are one
+    program.  For that reason too a strategy that would make a split
+    input a partial sum is not taken (torch 2.11 may offer nothing
+    else, and cannot carry it out: the inputs are then replicated on
+    that mesh axis), and `flip` (a cumulative sum's backward), which
+    torch 2.11 has no strategy for, has one here (`_flip_strategy`).
 
     `_select_min_cost_strategy`, the strategies of `view`,
     `_unsafe_view` and `flip`, and `shard_dim_alltoall` are swapped for
@@ -326,14 +331,15 @@ def gspmd_choices():
                     invented, changes, -parts, costs[i])
         return made(specs[min(range(len(specs)), key=key)], op_schema)
 
-    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
-
     def all_to_all(local, gather_dim, shard_dim, mesh, mesh_dim):
-        whole = gather(local, gather_dim, (mesh, mesh_dim))
-        if hasattr(whole, "wait"):
-            whole = whole.wait()
-        part = torch.chunk(whole, mesh.size(mesh_dim), dim=shard_dim)
-        return part[mesh.get_local_rank(mesh_dim)].contiguous()
+        # DTensor pads both dimensions to a multiple of the axis first.
+        n = mesh.size(mesh_dim)
+        parts = local.unflatten(shard_dim, (n, -1)).movedim(shard_dim, 0)
+        moved = funcol.all_to_all_single(parts.contiguous(), None, None,
+                                         (mesh, mesh_dim))
+        if hasattr(moved, "wait"):
+            moved = moved.wait()
+        return torch.cat(moved.unbind(0), dim=gather_dim)
 
     prop._select_min_cost_strategy = select
     placement_types.shard_dim_alltoall = all_to_all
@@ -420,24 +426,33 @@ def _whole_pieces(reshape: Callable) -> Callable:
     axis that splits it, one at a time, not against their product: (1,
     131072, D) split over data and model (256 ways) viewed as (32, 4096,
     D) would give a batch of 32 split 256 ways, which no device's local
-    view can hold.  Where a new dimension is split over more than one
-    axis and their product does not divide it, the input is gathered
-    over the last of those axes and the view propagated again, as GSPMD
-    reshards a reshape."""
+    view can hold.  Nor does it check a flattened dimension whose split
+    part those axes cut unevenly: rwkv6's (1, 1, 64 heads, 64) split 256
+    ways on its heads, flattened to (1, 1, 4096).  Where a new dimension
+    is split over more than one axis and their product does not divide
+    it, or its split part, the input is gathered over the last of those
+    axes and the view propagated again, as GSPMD reshards a reshape."""
     from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
-    from torch.distributed.tensor._ops._view_ops import InputDim, dim_maps
+    from torch.distributed.tensor._ops._view_ops import (Flatten, InputDim,
+                                                         dim_maps)
     from torch.distributed.tensor._ops.utils import \
         generate_redistribute_costs
 
-    def overcut(spec, rules, shape) -> Optional[int]:
-        """The last mesh axis of an output dimension a split made (not
-        one the view keeps as it is) that its axes cut unevenly."""
+    def overcut(spec, rules, shape, src_shape) -> Optional[int]:
+        """The last mesh axis of an output dimension a split or a flatten
+        made (not one the view keeps as it is) that its axes cut
+        unevenly."""
         mesh_shape = spec.mesh.shape
         for d, cmd in enumerate(rules):
             axes = [m for m, p in enumerate(spec.placements)
                     if p.is_shard() and p.dim == d]
-            if (len(axes) > 1 and not isinstance(cmd, InputDim)
-                    and shape[d] % math.prod(mesh_shape[m] for m in axes)):
+            if len(axes) < 2 or isinstance(cmd, InputDim):
+                continue
+            size = shape[d]
+            if isinstance(cmd, Flatten) and isinstance(cmd.input_dims[0],
+                                                       InputDim):
+                size = src_shape[cmd.input_dims[0].input_dim]
+            if size % math.prod(mesh_shape[m] for m in axes):
                 return axes[-1]
         return None
 
@@ -450,8 +465,8 @@ def _whole_pieces(reshape: Callable) -> Callable:
                  for n in size]
         fitted = []
         for spec, have in zip(out.strategies, src.strategies):
-            while (axis := overcut(spec.output_spec, rules, shape)) \
-                    is not None:
+            while (axis := overcut(spec.output_spec, rules, shape,
+                                   src.shape)) is not None:
                 want = list(spec.input_specs[0].placements)
                 want[axis] = Replicate()
                 gathered = _with_placements(have.output_spec, want)
@@ -563,29 +578,37 @@ class _Trace(TorchDispatchMode):
         self.largest: Counter = Counter()     # kind -> largest result
         self.sites: Optional[Counter] = None if _SITES is None else Counter()
         self.peak_site = ""
-        self.holders: Dict[int, list] = {}   # storage -> [tensors, bytes]
+        # storage address -> [tensors, bytes, address] of the storage
+        # made there last
+        self.holders: Dict[int, list] = {}
 
-    def _release(self, key: int) -> None:
-        held = self.holders[key]
+    def _release(self, held: list) -> None:
         held[0] -= 1
         if not held[0]:
             self.live -= held[1]
-            del self.holders[key]
+            if self.holders.get(held[2]) is held:
+                del self.holders[held[2]]
 
     def _hold(self, t: torch.Tensor, new: bool) -> None:
         key = t.untyped_storage()._cdata
-        if key not in self.holders:
-            if not new:
-                return                           # an argument's storage
-            self.holders[key] = [0, t.untyped_storage().nbytes()]
-            self.live += self.holders[key][1]
+        held = self.holders.get(key)
+        if new:
+            # A storage made at the address of one that is gone: a
+            # collective's result whose wait handed on another storage
+            # (the meta device's) keeps its record through the tensor
+            # the wait returned.
+            held = self.holders[key] = [0, t.untyped_storage().nbytes(),
+                                        key]
+            self.live += held[1]
             if self.live > self.peak and self.sites is not None:
                 big = sorted((h[1] for h in self.holders.values()),
                              reverse=True)[:3]
                 self.peak_site = f"{_site()} (largest live {big})"
             self.peak = max(self.peak, self.live)
-        self.holders[key][0] += 1
-        weakref.finalize(t, self._release, key)
+        elif held is None:
+            return                               # an argument's storage
+        held[0] += 1
+        weakref.finalize(t, self._release, held)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -603,10 +626,10 @@ class _Trace(TorchDispatchMode):
         name = func.name()
         if name in PASS_THROUGH:
             for o, i in zip(outs, ins):
-                key = i.untyped_storage()._cdata
-                if key in self.holders and o is not i:
-                    self.holders[key][0] += 1
-                    weakref.finalize(o, self._release, key)
+                held = self.holders.get(i.untyped_storage()._cdata)
+                if held is not None and o is not i:
+                    held[0] += 1
+                    weakref.finalize(o, self._release, held)
             return out
         self.ops += 1
         if name in MATMUL_OPS:

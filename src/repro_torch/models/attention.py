@@ -19,9 +19,9 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.common import (contiguous_stride, is_split,
-                                       reduce_over, write_columns_,
-                                       write_rows_)
+from repro_torch.models.common import (contiguous_stride, contract,
+                                       is_split, reduce_over,
+                                       write_columns_, write_rows_)
 
 NEG_INF = -2.0e38
 
@@ -133,7 +133,7 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
 
 def _scores(q, k, scale, softcap):
     # q: (B, Sq, G, KH, D) k: (B, Skv, KH, D)
-    s = torch.einsum("bqghd,bkhd->bghqk", q.float(), k.float()) * scale
+    s = contract("bqghd,bkhd->bghqk", q.float(), k.float()) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     return s
@@ -189,7 +189,7 @@ def _attention_plain(qg, k, v, mask, scale, softcap):
     s = _scores(qg, k, scale, softcap)                  # (B,G,KH,Sq,Skv)
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bghqk,bkhd->bqghd", p, v.float())
+    return contract("bghqk,bkhd->bqghd", p, v.float())
 
 
 def _attention_online(qg, k, v, mask, scale, softcap, kv_chunk):
@@ -215,7 +215,7 @@ def _attention_online(qg, k, v, mask, scale, softcap, kv_chunk):
         # (where s == m_new == NEG_INF and the naive exp would give 1).
         p = torch.where(mask_i, torch.exp(s - m_new[..., None]), 0.0)
         l_run = l_run * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + contract(
             "bghqk,bkhd->bghqd", p, v_i.float())
         m_run = m_new
     o = acc / torch.clamp_min(l_run[..., None], 1e-37)
@@ -257,7 +257,7 @@ def _attention_split_slots(qg, k, v, mask, scale, softcap, kv_chunk):
         s = torch.where(mask_l[:, None, None], s, NEG_INF)
         e = torch.exp(s - over(s.amax(dim=-1, keepdim=True), "max"))
         p = e / over(e.sum(dim=-1, keepdim=True), "sum")
-        o = over(torch.einsum("bghqk,bkhd->bqghd", p, v_l.float()), "sum")
+        o = over(contract("bghqk,bkhd->bqghd", p, v_l.float()), "sum")
     shape = (*qg.shape[:4], v.shape[3])
     return DTensor.from_local(o.contiguous(), mesh, qp, run_check=False,
                               shape=shape, stride=contiguous_stride(*shape))
@@ -361,8 +361,8 @@ def _latent_attention(q_nope, q_rope, c, kr, w_uk, w_uv, mask, qk_nope,
     """Attention over keys and values expanded from the latent `c` and
     the shared rope key `kr`; returns (B, S, H, v_dim)."""
     # Expand keys/values from the latent explicitly, as the reference does.
-    k_nope = torch.einsum("bsc,chk->bshk", c, w_uk)
-    v = torch.einsum("bsc,chk->bshk", c, w_uv)
+    k_nope = contract("bsc,chk->bshk", c, w_uk)
+    v = contract("bsc,chk->bshk", c, w_uv)
     kh = k_nope.shape[2]
     kr_b = kr[:, :, None, :].expand(*kr.shape[:2], kh, qk_rope)
     k = torch.cat([k_nope, kr_b], dim=-1)
@@ -380,8 +380,7 @@ def _latent_attention_split(q_nope, q_rope, c, kr, p, mask, qk_nope,
     (in the cache's dtype), and each rank expands and attends its rows
     and the heads its weights hold.  (XLA instead expands each device's
     slots and moves the float32 keys and values to the heads, an
-    all-to-all of about the same bytes, which the partitioned trace
-    could only make a whole gather: ROADMAP Queue 3.)"""
+    all-to-all of about the same bytes.)"""
     mesh = c.device_mesh
     rows = [q.is_shard() and q.dim == 0 for q in c.placements]
     heads = [not r and w.is_shard() and w.dim == 1

@@ -12,7 +12,8 @@ a mesh that splits the step, runs it on DTensors: there
 `token_positions` / `slot_positions` make positions split as the tokens
 or the cache slots are, `batched` makes a mask or state split as its
 operand's batch, `take_rows` looks an embedding up on its split rows,
-`reduce_over` all-reduces a partial result, and `write_rows_` /
+`reduce_over` all-reduces a partial result, `contract` runs a batched
+product with its batch and heads kept split, and `write_rows_` /
 `write_columns_` write a cache on this rank's shard.  The eager
 single-card steps apply no placement: on a plain tensor each does what
 the model wrote, and nothing more.
@@ -31,8 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
+from torch.distributed.tensor._utils import (
+    compute_global_tensor_info, compute_local_shape_and_global_offset)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -125,6 +126,52 @@ def reduce_over(local: torch.Tensor, like: DTensor, dim: int,
         local, mesh, [Partial(op) if o else Replicate() for o in over],
         run_check=False, shape=local.shape, stride=local.stride())
     return part.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def contract(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum(equation, *operands)`: a product with batch letters.
+    On plain tensors it is that call.  Over DTensors it is split as GSPMD
+    splits a dot with batch dimensions, on each mesh axis: the letter
+    that axis splits in an operand stays split (where operands split
+    different letters, the largest operand's), every operand holding
+    that letter is split on it too (a move between split dimensions is
+    an all-to-all) and the others are gathered; the einsum runs on the
+    local tensors; the result is split on that letter where it keeps
+    it, and a partial sum where it is contracted.  A DTensor einsum
+    would instead flatten the batch letters for a bmm, and DTensor's
+    reshape keeps only the first of two split parts: heads split with
+    the batch would be gathered.  Each operand's gradient is a partial
+    sum on the axes that split a letter it lacks."""
+    if not any(isinstance(t, DTensor) for t in operands):
+        return torch.einsum(equation, *operands)
+    mesh = operands[0].device_mesh
+    ins, out = equation.split("->")
+    ins = ins.split(",")
+    size = {c: n for letters, t in zip(ins, operands)
+            for c, n in zip(letters, t.shape)}
+    kept = []                    # each mesh axis's split letter, or None
+    for m, n in enumerate(mesh.shape):
+        split = [(t.numel(), -i, ins[i][t.placements[m].dim])
+                 for i, t in enumerate(operands)
+                 if n > 1 and t.placements[m].is_shard()]
+        kept.append(max(split)[2] if split else None)
+    local = []
+    for letters, t in zip(ins, operands):
+        held = [c is not None and c in letters for c in kept]
+        # A partial sum is reduced (scattered where the axis splits a
+        # letter it holds).
+        want = [Shard(letters.index(c)) if h else Replicate()
+                for c, h in zip(kept, held)]
+        local.append(t.redistribute(mesh, want).to_local(grad_placements=[
+            p if c is None or h else Partial()
+            for c, h, p in zip(kept, held, want)]))
+    res = torch.einsum(equation, *local)
+    places = [Replicate() if c is None else Shard(out.index(c)) if c in out
+              else Partial() for c in kept]
+    return DTensor.from_local(
+        res, mesh, places, run_check=False,
+        shape=tuple(size[c] for c in out),
+        stride=tuple(compute_global_tensor_info(res, mesh, places)[1]))
 
 
 def token_positions(tokens: torch.Tensor, start: int = 0) -> torch.Tensor:

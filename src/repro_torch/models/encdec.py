@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
-                                       batched, logical_constraint,
+                                       batched, contract, logical_constraint,
                                        norm_spec, remat, slot_positions,
                                        stack_specs, take_rows,
                                        token_positions, tree_unbind,
@@ -84,18 +84,18 @@ def _sinusoid(length: int, d: int, device) -> torch.Tensor:
 
 
 def _mha(x, p, mask, kv=None, kv_chunk=None):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = contract("bsd,dhk->bshk", x, p["wq"])
     src = x if kv is None else kv
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    k = contract("bsd,dhk->bshk", src, p["wk"])
+    v = contract("bsd,dhk->bshk", src, p["wv"])
     o = attn.gqa_attention(q, k, v, mask, kv_chunk=kv_chunk)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return contract("bshk,hkd->bsd", o, p["wo"])
 
 
 def _mha_cached(x, p, mask, k, v):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = contract("bsd,dhk->bshk", x, p["wq"])
     o = attn.gqa_attention(q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return contract("bshk,hkd->bsd", o, p["wo"])
 
 
 def _mlp(h, p):
@@ -202,8 +202,8 @@ class EncDecLM:
         """Encode once and precompute cross-attention K/V."""
         enc = self.encode(params, frames, rules)
         cross = params["dec_layers"]["cross_attn"]
-        ks = torch.einsum("bsd,ldhk->lbshk", enc, cross["wk"])
-        vs = torch.einsum("bsd,ldhk->lbshk", enc, cross["wv"])
+        ks = contract("bsd,ldhk->lbshk", enc, cross["wk"])
+        vs = contract("bsd,ldhk->lbshk", enc, cross["wv"])
         return {**cache, "cross_k": ks.to(cache["cross_k"].dtype),
                 "cross_v": vs.to(cache["cross_v"].dtype)}
 
@@ -227,8 +227,8 @@ class EncDecLM:
         for i, lp in enumerate(tree_unbind(params["dec_layers"])):
             sk, sv = cache["self_k"][i], cache["self_v"][i]
             y = apply_norm(x, lp["ln1"], cfg.norm)
-            kq = torch.einsum("bsd,dhk->bshk", y, lp["self_attn"]["wk"])
-            vq = torch.einsum("bsd,dhk->bshk", y, lp["self_attn"]["wv"])
+            kq = contract("bsd,dhk->bshk", y, lp["self_attn"]["wk"])
+            vq = contract("bsd,dhk->bshk", y, lp["self_attn"]["wv"])
             span = slice(write, write + 1)
             write_columns_(sk, span, kq.to(sk.dtype))
             write_columns_(sv, span, vq.to(sv.dtype))

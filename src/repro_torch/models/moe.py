@@ -14,6 +14,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.models.common import contract
+
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -98,10 +100,10 @@ def route(logits: torch.Tensor, cfg: MoEConfig
 
 def _expert_ffn(xe: torch.Tensor, p: Dict, act) -> torch.Tensor:
     """xe: (E, C', d_model) -> (E, C', d_model); gated (SwiGLU-style)."""
-    h_g = torch.einsum("ecd,edf->ecf", xe, p["w_gate"])
-    h_u = torch.einsum("ecd,edf->ecf", xe, p["w_up"])
+    h_g = contract("ecd,edf->ecf", xe, p["w_gate"])
+    h_u = contract("ecd,edf->ecf", xe, p["w_up"])
     h = act(h_g) * h_u
-    return torch.einsum("ecf,efd->ecd", h, p["w_down"])
+    return contract("ecf,efd->ecd", h, p["w_down"])
 
 
 GROUP_SIZE = 2048
@@ -131,10 +133,10 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: MoEConfig, act,
     # weights, bf16 is exact for the former and ample for the latter.
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
-    xe = torch.einsum("gtec,gtd->egcd", dispatch, xg)
+    xe = contract("gtec,gtd->egcd", dispatch, xg)
     e, _, c, _ = xe.shape
     ye = _expert_ffn(xe.reshape(e, g * c, d), p, act).reshape(e, g, c, d)
-    out = torch.einsum("egcd,gtec->gtd", ye, combine).reshape(t, d)
+    out = contract("egcd,gtec->gtd", ye, combine).reshape(t, d)
 
     if cfg.num_shared:
         hg = torch.einsum("td,df->tf", xt, p["shared_gate"])

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import batched, remat
+from repro_torch.models.common import batched, contract, remat
 
 CHUNK = 16
 LOG_DECAY_MIN = -8.0
@@ -43,9 +43,9 @@ def wkv6_scan(r, k, v, w, u, state0):
     s = state0.float()
     ys = []
     for t in range(r.shape[1]):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                               s + u[None, :, :, None] * kv))
+        kv = contract("bhk,bhv->bhkv", k[:, t], v[:, t])
+        ys.append(contract("bhk,bhkv->bhv", r[:, t],
+                           s + u[None, :, :, None] * kv))
         s = w[:, t, ..., None] * s + kv
     return torch.stack(ys, dim=1), s
 
@@ -75,23 +75,23 @@ def wkv6_chunked(r, k, v, w, u, state0, *, chunk: int = CHUNK):
         m = c[:, chunk // 2]                       # (B,H,K) midpoint shift
         # inter-chunk: y_t += (r_t * exp(c_prev)) @ state
         r_decay = r_i * torch.exp(c_prev)
-        y_inter = torch.einsum("bchk,bhkv->bchv", r_decay, state)
+        y_inter = contract("bchk,bhkv->bchv", r_decay, state)
         # intra-chunk: A[t,j] = sum_k r_t k_j exp(c_prev_t - c_j), j < t.
         # Invalid (j >= t) pairs can overflow to +inf before masking, so
         # mask with `where` (0*inf would be NaN).
         r_sh = r_i * torch.exp(c_prev - m[:, None])
         k_sh = k_i * torch.exp(m[:, None] - c)
-        a = torch.einsum("bthk,bjhk->bhtj", r_sh, k_sh)
+        a = contract("bthk,bjhk->bhtj", r_sh, k_sh)
         a = torch.where(tri_lower > 0, a, 0.0)
         # bonus diagonal: r_t . (u * k_t)
-        diag = torch.einsum("bthk,bthk->bht", r_i, u[None, None] * k_i)
+        diag = contract("bthk,bthk->bht", r_i, u[None, None] * k_i)
         a = a + diag[..., None] * eye
-        y_intra = torch.einsum("bhtj,bjhv->bthv", a, v_i)
+        y_intra = contract("bhtj,bjhv->bthv", a, v_i)
         # state update: S' = exp(sum lw) * S + sum_j exp(c_last - c_j) k_j v_j
         c_last = c[:, -1]                          # (B,H,K)
         k_tail = k_i * torch.exp(c_last[:, None] - c)
         state = (torch.exp(c_last)[..., None] * state
-                 + torch.einsum("bjhk,bjhv->bhkv", k_tail, v_i))
+                 + contract("bjhk,bjhv->bhkv", k_tail, v_i))
         return state, y_inter + y_intra
 
     step = remat(step, "full")

@@ -8,7 +8,8 @@ reference's, on the CPU.
   reference's mini dry run, tests/launch/test_launch.py) has every key
   the roofline reads, with `argument_bytes` equal to the sum of the
   reference's shard-shape bytes and to XLA's `memory_analysis()`, and
-  its per-device peak within PEAK_TO_REF of XLA's (the reference's side
+  its per-device peak within PEAK_TO_REF of XLA's (PEAK_TO_REF_OF for
+  an arch measured apart; the reference's side
   in a subprocess with 8 forced host devices), all under the
   reference's keys (the trace is partitioned over the mesh); on a
   1 x 1 mesh the argument bytes equal the bytes of the tensors a step
@@ -286,6 +287,12 @@ REF_MINI = textwrap.dedent("""
 # on the CPU first: 1.071 gemma3, 0.770 rwkv6, 0.659 deepseek-v2-lite
 # (smoke() size, PERF.md §6); the band holds it within 0.5-2x of XLA's.
 PEAK_TO_REF = (0.5, 2.0)
+# qwen2-moe's mini train peak, 0.476 of XLA's measured first (the routing
+# one-hots of four groups of 2048 tokens hold most of both), held in a
+# band of its own: its batched products keep batch and heads split
+# (`models.common.contract`), so the copies DTensor's einsum gathered are
+# gone (0.501 before, inside PEAK_TO_REF by 0.001).
+PEAK_TO_REF_OF = {"qwen2-moe-a2.7b": (0.43, 0.53)}
 # gemma3's traced all-gather bytes over XLA's on the four mini cells,
 # measured first (PERF.md §6): train 1.453, prefill 0.500, decode
 # 0.590, chunked decode 0.736.  XLA on the CPU gathers weights in
@@ -307,23 +314,27 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
 # all-gather above XLA's largest), "gather" (GATHER_TO_REF), "flops"
 # (FLOPS_TO_REF, on cells whose XLA program has no loop: gemma3's
 # layers are unscanned, so its prefill and decode HLO holds each once).
-# qwen2-moe and whisper, measured first, are held where they lie inside
-# the bands; outside them (ROADMAP Queue 3): qwen2-moe's all-gather
-# 22.6 / 3.50 / 1.79 / 3.92 x XLA's (train / prefill / decode / chunked
-# decode), its train's largest 41,943,040 B against 524,288 (the
-# dispatch's move between split dimensions traced as a gather);
-# whisper's all-gather 2.39 train, 1.92 decode and chunked decode.
-# rwkv6 and deepseek are printed.
+# Each arch is held where it was measured inside the bands.  Since the
+# batched products keep batch and heads split (`models.common.contract`)
+# and a move between split dimensions is an all-to-all, measured first:
+# qwen2-moe's all-gather 0.779 / 0.879 / 0.833 / 0.833 x XLA's (train /
+# prefill / decode / chunked decode; was 22.6 / 3.50 / 1.79 / 3.92), its
+# train's largest 262,144 B against 524,288 (was 41,943,040); whisper's
+# 0.994 / 0.802 / 1.019 / 1.019 (was 2.39 / 1.127 / 1.92 / 1.92);
+# rwkv6's 0.914 / 0.689 / 0.917 / 0.917 (was 3.12 / 2.24 / 1.15 /
+# 1.15), its train's largest 65,536 B, XLA's (was 81,920);
+# deepseek-v2-lite's prefill and decodes 1.199 / 0.703 / 1.000.
+# deepseek's train (all-gather 1.713 x XLA's, largest 327,680 B against
+# 163,840: ROADMAP Queue 3 item 10) is printed.
+HELD = ("largest", "gather")
 HELD_TO_REF = {
-    "gemma3-1b": {"train": ("largest", "gather"),
-                  "prefill": ("largest", "gather", "flops"),
-                  "decode": ("largest", "gather", "flops"),
-                  "decode_chunked": ("largest", "gather")},
-    "qwen2-moe-a2.7b": {"prefill": ("largest",), "decode": ("largest",),
-                        "decode_chunked": ("largest",)},
-    "whisper-small": {cell: ("largest",) + (("gather",)
-                                            if cell == "prefill" else ())
-                      for cell in MINI_CELLS}}
+    "gemma3-1b": {"train": HELD, "prefill": HELD + ("flops",),
+                  "decode": HELD + ("flops",), "decode_chunked": HELD},
+    "rwkv6-7b": {cell: HELD for cell in MINI_CELLS},
+    "deepseek-v2-lite-16b": {cell: HELD for cell in MINI_CELLS
+                             if cell != "train"},
+    "qwen2-moe-a2.7b": {cell: HELD for cell in MINI_CELLS},
+    "whisper-small": {cell: HELD for cell in MINI_CELLS}}
 
 
 @pytest.fixture(scope="module")
@@ -377,7 +388,8 @@ def test_traced_mini_cell(arch, mini_records):
     print(f"{arch}: peak {peak} bytes, XLA's {ref_peak} "
           f"(ratio {peak / ref_peak:.3f}); flops {cost['flops']:.4e}, "
           f"XLA's {xla['cost']['flops']:.4e}")
-    assert PEAK_TO_REF[0] <= peak / ref_peak <= PEAK_TO_REF[1]
+    lo, hi = PEAK_TO_REF_OF.get(arch, PEAK_TO_REF)
+    assert lo <= peak / ref_peak <= hi
     assert cost["flops"] > 0 and cost["bytes_accessed"] > 0
     assert rec["collectives"]["total"] > 0
     assert rec["collectives_traced"]["total"] > 0
@@ -470,8 +482,9 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     ref_peak = x["argument_bytes"] + x["output_bytes"] + x["temp_bytes"] \
         - x["alias_bytes"]
     print(f"{arch} {cell}: all-gather {gather:.0f} B, XLA's {ref_gather:.0f}"
-          f" (ratio {gather / ref_gather:.3f}; XLA's all-to-all "
-          f"{xla['collectives'].get('all-to-all', 0.0):.0f}); largest "
+          f" (ratio {gather / ref_gather:.3f}); all-to-all "
+          f"{rec['collectives_traced'].get('all-to-all', 0.0):.0f} B, XLA's "
+          f"{xla['collectives'].get('all-to-all', 0.0):.0f}; largest "
           f"all-gather {big} B, XLA's {ref_big}; flops {flops:.4e}, XLA's "
           f"{ref_flops:.4e} (ratio {flops / ref_flops:.3f}); peak {peak} "
           f"B, XLA's {ref_peak} (ratio {peak / ref_peak:.3f})")
@@ -679,6 +692,46 @@ def test_collective_bytes_two_leaves_train():
     assert out == {"all-gather": 192.0, "reduce-scatter": 96.0,
                    "total": 288.0, "all-gather_count": 4.0,
                    "reduce-scatter_count": 4.0}
+
+
+def test_a_move_between_split_dimensions_is_an_all_to_all():
+    """Inside `gspmd_choices`, `Shard(0)` to `Shard(1)` over the model
+    axis of the mini mesh is one all-to-all whose result is the local
+    part (1/2 of the tensor's bytes), and no all-gather: each device
+    holds its part, not the whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    shape = (8, 12, 6)
+    with dryrun.one_rank(mesh) as dm, dryrun.gspmd_choices():
+        split = DTensor.from_local(
+            torch.empty(4, 12, 6, device="meta"), dm,
+            [Replicate(), Replicate(), Shard(0)], run_check=False,
+            shape=shape, stride=(72, 6, 1))
+        tr = dryrun._Trace()
+        with tr:
+            moved = split.redistribute(dm, [Replicate(), Replicate(),
+                                            Shard(1)])
+    assert tuple(moved.to_local().shape) == (8, 6, 6)
+    assert dict(tr.collectives) == {"all-to-all": 8 * 12 * 6 * 4 // 2,
+                                    "all-to-all_count": 1}
+
+
+def test_a_flatten_of_an_unevenly_cut_dimension_is_gathered_first():
+    """rwkv6-7b long_500k's WKV output, (1, 1, 64 heads, 64) with its heads
+    split over data and model (256 ways, uneven), flattened to (1, 1,
+    4096): the view gathers the model axis first (a local view of 16 of
+    the 64 values rank 0 holds would fail)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = make_mesh((16, 16), ("data", "model"))
+    with dryrun.one_rank(mesh) as dm, dryrun.gspmd_choices():
+        heads = DTensor.from_local(
+            torch.empty(1, 1, 1, 64, device="meta"), dm,
+            [Shard(2), Shard(2)], run_check=False, shape=(1, 1, 64, 64),
+            stride=(4096, 4096, 64, 1))
+        flat = heads.reshape(1, 1, 4096)
+    assert tuple(flat.placements[0:1]) == (Shard(2),)
+    assert not flat.placements[1].is_shard()
+    assert tuple(flat.to_local().shape) == (1, 1, 256)
 
 
 def _two_leaves_decode(kv_chunk):

@@ -19,7 +19,9 @@ group that lives only inside the trace.
     is split 8 ways (exact with that term); deepseek keeps its experts
     and routing whole on every rank under these rules (as the
     reference's GSPMD program does), which the ratio bounds.
-(c) A warm and a cold DTensor propagation cache give identical figures.
+(c) A warm and a cold DTensor propagation cache give identical figures,
+    and a partitioned train step traced twice gives the same peak (a
+    storage made at the address of one that is gone is counted anew).
 (d) `logical_constraint` returns a plain tensor as the same object and
     redistributes a DTensor; `write_rows_` on a split cache writes this
     rank's rows; `batched` and `slot_positions` make this rank's part.
@@ -162,6 +164,20 @@ def test_figures_do_not_depend_on_the_propagation_cache():
     assert warm["partitioned"] is True
     assert _figures(warm) == _figures(again) == _figures(cold)
     assert warm["collectives_traced"] == cold["collectives_traced"]
+
+
+def test_a_partitioned_train_trace_repeats():
+    """whisper's mini train cell, whose collectives' waits hand on new
+    storages on the meta device: twice the same figures."""
+    from test_torch_dryrun import mini_cells, mini_config
+    shape, kv_chunk = mini_cells("whisper-small")["train"]
+    cfg = mini_config(get_config("whisper-small", smoke=True), kv_chunk)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    first, second = (dryrun.lower(cfg, ShapeSpec(*shape), mesh)
+                     for _ in range(2))
+    assert first["partitioned"] is True
+    assert _figures(first) == _figures(second)
+    assert first["collectives_traced"] == second["collectives_traced"]
 
 
 # ------------------------------------------------------- (d)

@@ -18,7 +18,14 @@ tensors in float32 (rtol = atol = 1e-5):
 * the MoE FFN (`models.moe.moe_ffn`) over a batch split as the data axis
   splits it, four routing groups routed at once (two a rank), its
   experts and shared FFN split as the model axis splits them: the
-  output and the aux loss, the mean over the groups of both ranks.
+  output and the aux loss, the mean over the groups of both ranks;
+* inside `launch.dryrun.gspmd_choices`, as the dry run runs its step: a
+  move between split dimensions (`Shard(0)` to `Shard(1)`, the
+  all-to-all over the group) and the batched product
+  (`models.common.contract`) with its operands split on the same
+  letter, on different letters (the smaller moved by all-to-all) and on
+  a contracted letter (a partial sum): the values and the operands'
+  gradients.
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
@@ -36,9 +43,10 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.launch import train
+from repro_torch.launch import dryrun, train
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
+from repro_torch.models.common import contract
 
 TOL = 1e-5
 DEADLINE_S = 120
@@ -167,6 +175,46 @@ def _moe_cases(rank, mesh):
     return "moe"
 
 
+def _contract_cases(rank, mesh):
+    rng = np.random.default_rng(4)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    # (equation, operand shapes, each operand's placement on "model")
+    cases = [("bqghd,bkhd->bghqk", ((4, 6, 2, 4, 8), (4, 5, 4, 8)),
+              (Shard(3), Shard(2))),                     # heads, both
+             ("bqghd,bkhd->bghqk", ((4, 6, 2, 4, 8), (4, 5, 4, 8)),
+              (Shard(0), Shard(2))),                     # k moved
+             ("bhtj,bjhv->bthv", ((4, 2, 6, 6), (4, 6, 2, 8)),
+              (Shard(3), Shard(1))),                     # a partial sum
+             ("gtec,gtd->egcd", ((4, 6, 4, 3), (4, 6, 8)),
+              (Shard(2), Shard(0)))]                     # tokens gathered
+    with dryrun.gspmd_choices():
+        x = randn(4, 6, 8)
+        moved = distribute_tensor(x, mesh, [Shard(0)]).redistribute(
+            mesh, [Shard(1)])
+        assert moved.placements == (Shard(1),)
+        torch.testing.assert_close(moved.full_tensor(), x, rtol=0, atol=0)
+        for equation, shapes, places in cases:
+            whole = [randn(*shape).requires_grad_(True) for shape in shapes]
+            want = torch.einsum(equation, *whole)
+            up = randn(*want.shape)
+            want_grads = torch.autograd.grad((want * up).sum(), whole)
+            split = [distribute_tensor(t.detach(), mesh, [p])
+                     .requires_grad_(True) for t, p in zip(whole, places)]
+            got = contract(equation, *split)
+            grads = torch.autograd.grad(
+                (got * distribute_tensor(up, mesh, [Replicate()])).sum(),
+                split)
+            torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                       atol=TOL)
+            for g, w in zip(grads, want_grads):
+                torch.testing.assert_close(g.full_tensor(), w, rtol=TOL,
+                                           atol=TOL)
+    return "contract"
+
+
 def _rank(rank, store_path, out_dir):
     done = []
     try:
@@ -174,7 +222,8 @@ def _rank(rank, store_path, out_dir):
                                 store=dist.FileStore(store_path, 2))
         mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
         done = [_attention_cases(rank, mesh), _latent_cases(rank, mesh),
-                _loss_cases(rank, mesh), _moe_cases(rank, mesh)]
+                _loss_cases(rank, mesh), _moe_cases(rank, mesh),
+                _contract_cases(rank, mesh)]
         dist.barrier()
     except Exception:
         done = [traceback.format_exc()]
@@ -200,5 +249,5 @@ def test_partitioned_values_equal_the_plain_path(tmp_path):
                 p.kill()
     for rank in (0, 1):
         said = (tmp_path / f"rank{rank}.txt").read_text()
-        assert said == "attention\nlatent\nloss\nmoe", \
+        assert said == "attention\nlatent\nloss\nmoe\ncontract", \
             f"rank {rank}:\n{said}"
