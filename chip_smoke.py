@@ -132,8 +132,10 @@ Phases, each fatal on failure:
      gemma3-1b train_4k (one microbatch of 2 x 4096 from the rank's 16
      sequences, its backward and the update), gemma3-1b decode_32k,
      mistral-large-123b decode_32k, whisper-small decode_32k (its 1500
-     encoder frames) and qwen2-moe-a2.7b train_4k (its routing groups
-     split over the data axis), the dry run's partitioned trace on
+     encoder frames), qwen2-moe-a2.7b train_4k (its routing groups
+     split over the data axis) and gemma3-1b long_500k (traced by the
+     shortcut over its local and global layers, run whole on the
+     card), the dry run's partitioned trace on
      the host (meta tensors) against the same partitioned step run for
      real on the card as rank 0 of a one-rank fake process group
      (`dryrun.run_on_rank`: the collectives return allocated, unfilled
@@ -2822,12 +2824,20 @@ CARD_DECODE = (4, 2048)  # phase 9's timed batch, a 2048-slot cache
 # 11e fails on one.
 PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25)}
 # 11e: cells run as rank 0 of the 16 x 16 mesh on the card: whisper's
-# decode holds its 1500 encoder frames (which 16 does not divide), and
-# qwen2-moe's train step routes its groups split over the data axis.
+# decode holds its 1500 encoder frames (which 16 does not divide),
+# qwen2-moe's train step routes its groups split over the data axis, and
+# gemma3's long_500k decode is traced by the shortcut over its local and
+# global layers (one period of the pattern and two, in the model's
+# order) while the card runs all 26 layers.
 RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("mistral-large-123b", "decode_32k"),
                ("whisper-small", "decode_32k"),
-               ("qwen2-moe-a2.7b", "train_4k"))
+               ("qwen2-moe-a2.7b", "train_4k"),
+               ("gemma3-1b", "long_500k"))
+# 11e: the cells traced by the shortcut whatever their operation count
+# (gemma3's long_500k would trace whole: the first shortcut over two
+# layer kinds held against the card).
+SHORTCUT_CELLS = (("gemma3-1b", "long_500k"),)
 # 11e: the reference's all-gather bytes for those cells, from XLA's
 # compiled HLO (`repro.launch.dryrun.lower_cell` on 16x16, 512 CPU
 # placeholder devices, jax 0.9.0; PERF.md §6).  XLA's HLO holds a
@@ -2839,12 +2849,15 @@ RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
 # GATHER_OVER_REF at most.  qwen2-moe's figure is one layer of one
 # microbatch; its batched products keep batch and heads split
 # (`models.common.contract`) and move between split dimensions by
-# all-to-all, as XLA's do (before, 7.57 x XLA's).
+# all-to-all, as XLA's do (before, 7.57 x XLA's).  gemma3's long_500k
+# figure is its whole step (no loop; `lower_cell("gemma3-1b",
+# "long_500k", False)`, the same jax and devices).
 REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("gemma3-1b", "decode_32k"): 2_508_893_696,
                   ("mistral-large-123b", "decode_32k"): 2_589_298_688,
                   ("whisper-small", "decode_32k"): 11_434_496,
-                  ("qwen2-moe-a2.7b", "train_4k"): 1_061_584_896}
+                  ("qwen2-moe-a2.7b", "train_4k"): 1_061_584_896,
+                  ("gemma3-1b", "long_500k"): 4_297_188_864}
 GATHER_OVER_REF = 1.25
 # 11c: the 16x16 cells whose partitioned trace once failed (the MoE
 # dispatch over split groups, rwkv6's views of split dimensions,
@@ -3120,7 +3133,8 @@ def rank0_on_card(smi):
     for arch, shape_name in RANK0_CELLS:
         cfg, shape = get_config(arch), SHAPES[shape_name]
         t0 = time.perf_counter()
-        rec = dryrun.lower(cfg, shape, mesh)
+        rec = dryrun.lower(cfg, shape, mesh, shortcut=(
+            True if (arch, shape_name) in SHORTCUT_CELLS else None))
         host_s = time.perf_counter() - t0
         if rec.get("status") != "OK" or not rec["partitioned"] or \
                 rec["trace_scope"] != "device":

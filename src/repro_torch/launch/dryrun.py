@@ -54,18 +54,27 @@ host time (DTensor's propagation, cached per op and shape).
 Python time per op on meta tensors is high (the SSM scans go chunk by
 chunk, attention by query and key chunks), so where the whole depth
 would dispatch more than SHORTCUT_OPS operations (counted in the trace
-of one layer of each kind) a cell takes a shortcut: one layer of each distinct
-kind (local or global window, dense or MoE, encoder or decoder), and
-once more with one more layer of each kind.  FLOPs, bytes and matrix
-products are then the base plus each kind's increment times its
-count less one, which equals the whole-depth trace (layers of one kind
-cost the same; held equal at smoke() size by the tests).  The peak is
-estimated: extrapolated the same way in training, where each layer's
-boundary and gradients stay live, and the largest traced peak in
-serving, where each layer's work is freed.  It depends on where in the
-layer order the kinds fall, which the shortcut does not keep, and the
-tests hold it within 15 % of the whole-depth trace at smoke() size.  A
-record's "trace_mode" says "full" or "shortcut".
+of one period of the layer pattern) a cell takes a shortcut.  The
+model's layers are a head (deepseek's dense layers), periods of its
+pattern (gemma3's five local layers and a global one; one layer where
+all are alike; one encoder and one decoder layer) and a remainder
+(`layer_period`); the shortcut traces the model cut to a few periods,
+each cut in the model's order with its head and remainder
+(`depth_config`): one period and two, or two and three where the first
+period's ops differ from the next ones' and five periods cost less
+than the whole.  FLOPs, bytes, matrix products and collectives are the
+smaller trace's plus one period's increment for each further period,
+which equals the whole-depth trace.  So is the peak: each trace keeps
+the live bytes at each of its ops, the two traces' ops are matched
+period by period (`_repeated_blocks`), and each op of the whole step
+holds its bytes in the smaller trace plus one increment a period; the
+peak is the largest of these.  The tests hold the shortcut equal to the
+whole-depth trace for every arch and step kind, at smoke() size and at
+deeper ones (a MoE serving step keeps a 4-byte scalar a layer longer
+from its third layer on, so its peak may come out up to 4 B a period
+high).  A pattern of fewer than two periods (hymba's global layers 0,
+15 and 31) traces whole.  A record's "trace_mode" says "full" or
+"shortcut".
 
 `run_on_rank` runs the same partitioned step for real on a card, as
 rank 0 (chip_smoke.py's phase 11e holds the trace's memory to it).
@@ -89,6 +98,7 @@ import os
 import time
 import traceback
 import weakref
+from array import array
 from collections import Counter
 from typing import Any, Callable, Dict, Optional
 
@@ -578,6 +588,11 @@ class _Trace(TorchDispatchMode):
         self.largest: Counter = Counter()     # kind -> largest result
         self.sites: Optional[Counter] = None if _SITES is None else Counter()
         self.peak_site = ""
+        # With `timeline` set: each op's name and the most live bytes
+        # while it ran (`traced_cost`'s shortcut reads them).
+        self.names: Optional[list] = None
+        self.lives: Optional[list] = None
+        self.window = 0
         # storage address -> [tensors, bytes, address] of the storage
         # made there last
         self.holders: Dict[int, list] = {}
@@ -605,6 +620,7 @@ class _Trace(TorchDispatchMode):
                              reverse=True)[:3]
                 self.peak_site = f"{_site()} (largest live {big})"
             self.peak = max(self.peak, self.live)
+            self.window = max(self.window, self.live)
         elif held is None:
             return                               # an argument's storage
         held[0] += 1
@@ -632,6 +648,7 @@ class _Trace(TorchDispatchMode):
                     weakref.finalize(o, self._release, held)
             return out
         self.ops += 1
+        self.window = self.live
         if name in MATMUL_OPS:
             self.matmuls += 1
         kind = COLLECTIVES.get(name.partition("::")[2])
@@ -657,6 +674,9 @@ class _Trace(TorchDispatchMode):
             aliased = i < len(rets) and rets[i].alias_info is not None
             self._hold(o, not aliased
                        and o.untyped_storage()._cdata not in inputs)
+        if self.names is not None:
+            self.names.append(name)
+            self.lives.append(self.window)
         return out
 
 
@@ -664,9 +684,10 @@ class _Trace(TorchDispatchMode):
 _ADDITIVE = ("ops", "flops_micro", "flops_once", "bytes_micro",
              "bytes_once", "matmuls", "out_bytes")
 # A whole-depth trace estimated to dispatch more operations than this
-# takes the one-layer-per-kind shortcut (at ~0.1 ms of Python an op on
-# meta tensors, about 10 s of host time; a partitioned trace's ops take
-# several times longer, DTensor's propagation included).
+# takes the shortcut over periods of the layer pattern (at ~0.1 ms of
+# Python an op on meta tensors, about 10 s of host time; a partitioned
+# trace's ops take several times longer, DTensor's propagation
+# included).
 SHORTCUT_OPS = 100_000
 
 
@@ -674,8 +695,8 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
                cache_len: int, rules=None, *, mesh=None,
                shardings: Optional[Dict[str, MeshSharding]] = None,
                device="meta", n_micro: int = 1,
-               before_step: Optional[Callable[[list], None]] = None
-               ) -> Dict[str, Any]:
+               before_step: Optional[Callable[[list], None]] = None,
+               timeline: bool = False) -> Dict[str, Any]:
     """Trace one step of `cfg`'s model: `inputs` its (micro)batch,
     `cache_len` the serving cache's slots.
 
@@ -689,7 +710,9 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
     is rank 0's.  With `n_micro` > 1 the step runs the first of that
     many microbatches of `inputs` (a view: each rank's first rows).
     `before_step`, if given, is called with the local tensors of every
-    argument once they are made, before the step runs.
+    argument once they are made, before the step runs.  With `timeline`
+    the result also holds "timeline": each counted op's name and the
+    most live bytes while it ran, in order.
 
     Returns the `_ADDITIVE` counts, the peak and the collectives:
     "micro" parts are forward and backward (train) or the serving step,
@@ -697,6 +720,8 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
     model = build(cfg)
     specs = model.param_specs()
     tr = _Trace(torch.device(device).type)
+    if timeline:
+        tr.names, tr.lives = [], array("q")
     with contextlib.ExitStack() as scope:
         if mesh is not None:
             dm = scope.enter_context(one_rank(
@@ -754,11 +779,14 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
         _SITES.append({"kind": kind, "layers": cfg.num_layers,
                        "peak": tr.peak, "peak_site": tr.peak_site,
                        "collectives": tr.sites})
-    return {"flops_micro": micro[0], "flops_once": tr.flops - micro[0],
-            "bytes_micro": micro[1], "bytes_once": tr.bytes - micro[1],
-            "coll_micro": micro[2], "coll_once": tr.collectives - micro[2],
-            "coll_largest": tr.largest, "ops": tr.ops,
-            "matmuls": tr.matmuls, "peak": tr.peak, "out_bytes": out_bytes}
+    out = {"flops_micro": micro[0], "flops_once": tr.flops - micro[0],
+           "bytes_micro": micro[1], "bytes_once": tr.bytes - micro[1],
+           "coll_micro": micro[2], "coll_once": tr.collectives - micro[2],
+           "coll_largest": tr.largest, "ops": tr.ops,
+           "matmuls": tr.matmuls, "peak": tr.peak, "out_bytes": out_bytes}
+    if timeline:
+        out["timeline"] = (tr.names, tr.lives)
+    return out
 
 
 def _first_micro(batch: Dict[str, torch.Tensor], n_micro: int
@@ -792,40 +820,124 @@ def _param_shardings(specs, rules, mesh):
 
 
 # ---------------------------------------------------------------------------
-# One layer of each kind
+# Periods of the layer pattern
 # ---------------------------------------------------------------------------
 
 
-def layer_kinds(cfg) -> Counter:
-    """How many layers of each distinct kind the model has: ("enc",) /
-    ("dec",) for the encoder-decoder, else (global attention, dense)."""
+def layer_sequence(cfg) -> list:
+    """Each layer's kind, in the model's order: ("enc",) then ("dec",)
+    for the encoder-decoder, else (global attention, dense)."""
     if cfg.is_encdec:
-        return Counter({("enc",): cfg.enc_dec.enc_layers,
-                        ("dec",): cfg.num_layers})
-    return Counter((cfg.layer_is_global(i), i in cfg.moe_dense_layers)
-                   for i in range(cfg.num_layers))
+        return ([("enc",)] * cfg.enc_dec.enc_layers
+                + [("dec",)] * cfg.num_layers)
+    return [(cfg.layer_is_global(i), i in cfg.moe_dense_layers)
+            for i in range(cfg.num_layers)]
 
 
-def depth_config(cfg, counts) -> Any:
-    """`cfg` with `counts[kind]` layers of each kind: dense layers first
-    (the stacked models' prefix), global layers named explicitly."""
+def layer_period(cfg) -> tuple:
+    """(head, period, count): the model's layers are `head` fixed layers
+    (the dense prefix), then `count` periods of `period` layers of its
+    local/global pattern, then the first layers of one more period (the
+    remainder).  The encoder-decoder's period is one encoder and one
+    decoder layer, its head the layers one stack has beyond the
+    other's."""
     if cfg.is_encdec:
+        n = min(cfg.enc_dec.enc_layers, cfg.num_layers)
+        return cfg.enc_dec.enc_layers + cfg.num_layers - 2 * n, 2, n
+    head = len(cfg.moe_dense_layers)
+    rest = layer_sequence(cfg)[head:]
+    period = next(p for p in range(1, len(rest) + 1)
+                  if all(rest[i] == rest[i - p]
+                         for i in range(p, len(rest))))
+    return head, period, len(rest) // period
+
+
+def depth_config(cfg, periods: int) -> Any:
+    """`cfg` with its head, `periods` periods of its layer pattern and its
+    remainder, in the model's order (global layers named explicitly)."""
+    head, period, count = layer_period(cfg)
+    if cfg.is_encdec:
+        cut = count - periods
         return dataclasses.replace(
-            cfg, num_layers=counts[("dec",)],
-            enc_dec=dataclasses.replace(cfg.enc_dec,
-                                        enc_layers=counts[("enc",)]))
-    order = sorted(counts, key=lambda k: (not k[1], k[0]))
-    kinds = [k for k in order for _ in range(counts[k])]
-    n_dense = sum(1 for k in kinds if k[1])
-    changes: Dict[str, Any] = {
-        "num_layers": len(kinds),
-        "moe_dense_layers": tuple(range(n_dense)),
-    }
+            cfg, num_layers=cfg.num_layers - cut,
+            enc_dec=dataclasses.replace(
+                cfg.enc_dec, enc_layers=cfg.enc_dec.enc_layers - cut))
+    kinds = layer_sequence(cfg)
+    n = cfg.num_layers - (count - periods) * period
+    changes: Dict[str, Any] = {"num_layers": n}
     if cfg.attn_window is not None:
-        changes["global_layers"] = tuple(i for i, k in enumerate(kinds)
-                                         if k[0])
+        changes["global_layers"] = tuple(
+            i for i in range(n)
+            if kinds[i if i < head else head + (i - head) % period][0])
         changes["global_layer_every"] = None
     return dataclasses.replace(cfg, **changes)
+
+
+def _repeated_blocks(one: list, two: list) -> Optional[list]:
+    """Where the ops of the trace of two periods (`two`, op names) repeat
+    a period: `two` is `one` with blocks of ops inserted, each a copy of
+    the block that follows it (the next period's forward, or backward, or
+    update).  Returns, for each op of `two`, the index of its op in `one`,
+    or -1 for an inserted one, with each block as early as it can stand
+    (the period first in time); None if `two` is not such a copy."""
+    match = [-1] * len(two)
+    i = j = 0
+    window = 16
+    while j < len(two):
+        if i < len(one) and one[i] == two[j]:
+            match[j] = i
+            i, j = i + 1, j + 1
+            continue
+        extra = (len(two) - j) - (len(one) - i)
+        ahead = one[i:i + window]
+        size = next((n for n in range(1, extra + 1)
+                     if (not ahead or two[j + n] == ahead[0])
+                     and two[j + n:j + n + len(ahead)] == ahead
+                     and two[j:j + n] == two[j - n:j]), None)
+        if size is None:
+            return None
+        start = j
+        while start > 0 and match[start - 1] >= 0 \
+                and two[start - 1] == two[start + size - 1]:
+            match[start + size - 1] = match[start - 1]
+            match[start - 1] = -1
+            start -= 1
+        j += size
+    return match if i == len(one) else None
+
+
+def _peak_of(low, high, periods: int, base: int) -> Optional[int]:
+    """The peak live bytes of the step over `periods` periods, from the
+    timelines (`trace_step`'s "timeline") of the traces of `base`
+    periods (`low`) and of one more (`high`).  Each op of `low` and its
+    op in `high` hold the bytes of one more period later on: so each op
+    of the whole step, the ops of the last period among them, holds its
+    bytes in `low` plus one increment a period more.  The first period's
+    ops, inserted in `high`, follow the line of the next period's
+    counterpart in `low`.  None where the two do not align period by
+    period."""
+    (names0, lives0), (names1, lives1) = low, high
+    match = _repeated_blocks(names0, names1)
+    if match is None:
+        return None
+    more = periods - base
+    peak = max(lives0[i] + more * (lives1[j] - lives0[i])
+               for j, i in enumerate(match) if i >= 0)
+    j = 0
+    while j < len(match):
+        if match[j] >= 0:
+            j += 1
+            continue
+        end = j
+        while end < len(match) and match[end] < 0:
+            end += 1
+        if end + end - j > len(match):
+            return None
+        for n in range(j, end):
+            first = lives0[match[n + end - j]]
+            peak = max(peak, first + more * (lives1[n] - first))
+        j = end
+    return peak
 
 
 def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
@@ -833,52 +945,65 @@ def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
                 shortcut: Optional[bool] = None,
                 memo: Optional[dict] = None) -> Dict[str, Any]:
     """`trace_step` of the whole model, or with `shortcut` its
-    extrapolation from one layer of each kind and one more of each.  By
+    extrapolation from the model cut to one period of its layer pattern
+    and to two, or to two and three (`depth_config`, each in the model's
+    order with the head and the remainder): every additive count is the
+    smaller trace's plus one period's increment for each further
+    period, and the peak is `_peak_of` the two traces' timelines.  A
+    pattern of fewer than two periods (hymba's explicit global layers),
+    or two traces that do not match period by period, trace whole.  By
     default the shortcut is taken when the whole depth would dispatch
-    more than SHORTCUT_OPS operations, scaled from the one-of-each
+    more than SHORTCUT_OPS operations, scaled from the one-period
     trace's count.  The result's "trace_mode" says which was done.
     `memo` keeps traces across calls: a plain trace depends on the
     config, the inputs' shapes and the cache length, not on the rules,
     which are hints; a partitioned one on the mesh and the rules too."""
-    def trace(c):
+    memo = {} if memo is None else memo
+
+    def trace(c, timeline=False):
         key = (repr(c), kind, cache_len, tuple(
             (k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())))
         if mesh is not None:
             key += (mesh, repr(sorted(rules.items())), repr(shardings))
-        if memo is not None and key in memo:
+        if key in memo and (not timeline or "timeline" in memo[key]):
             return memo[key]
-        out = trace_step(c, kind, inputs, cache_len, rules, mesh=mesh,
-                         shardings=shardings)
-        if memo is not None:
-            memo[key] = out
-        return out
+        memo[key] = trace_step(c, kind, inputs, cache_len, rules, mesh=mesh,
+                               shardings=shardings, timeline=timeline)
+        return memo[key]
 
-    full = layer_kinds(cfg)
-    base = Counter({k: 1 for k in full})
-    if shortcut is False or base == full:
+    count = layer_period(cfg)[2]
+    if shortcut is False or count < 2:
         return {**trace(cfg), "trace_mode": "full"}
-    cost = trace(depth_config(cfg, base))
-    estimate = cost["ops"] * sum(full.values()) / sum(base.values())
+    one = depth_config(cfg, 1)
+    cost = trace(one, timeline=True)
+    estimate = cost["ops"] * len(layer_sequence(cfg)) \
+        / len(layer_sequence(one))
     if shortcut is None and estimate <= SHORTCUT_OPS:
         return {**trace(cfg), "trace_mode": "full"}
-    total = dict(cost, trace_mode="shortcut")
-    for k, n in full.items():
-        if n == 1:
-            continue
-        more = trace(depth_config(cfg, base + Counter({k: 1})))
-        for key in _ADDITIVE:
-            total[key] += (n - 1) * (more[key] - cost[key])
-        for key in ("coll_micro", "coll_once"):
-            total[key] = Counter({
-                c: total[key][c] + (n - 1) * (more[key][c] - cost[key][c])
-                for c in set(total[key]) | set(more[key])})
-        total["coll_largest"] = total["coll_largest"] | more["coll_largest"]
-        # Training keeps each layer's boundary and gradients, so its peak
-        # grows with depth; a serving step frees each layer's work.
-        total["peak"] = (total["peak"] + (n - 1) * (more["peak"]
-                                                    - cost["peak"])
-                         if kind == "train"
-                         else max(total["peak"], more["peak"]))
+    # From two periods and three where five cost less than the whole:
+    # the first period's ops may differ from the next ones' (a stacked
+    # leaf of one layer, a sum begun in the first layer); else, or where
+    # those do not align, from one period and two.
+    for base in ((2, 1) if count > 5 else (1,)):
+        low = trace(depth_config(cfg, base), timeline=True)
+        high = trace(depth_config(cfg, base + 1), timeline=True)
+        peak = (high["peak"] if count == base + 1 else
+                _peak_of(low["timeline"], high["timeline"], count, base))
+        if peak is not None:
+            break
+    for out in memo.values():
+        out.pop("timeline", None)
+    if peak is None:
+        return {**trace(cfg), "trace_mode": "full"}
+    more = count - base
+    total = dict(low, trace_mode="shortcut", peak=peak)
+    for key in _ADDITIVE:
+        total[key] += more * (high[key] - low[key])
+    for key in ("coll_micro", "coll_once"):
+        total[key] = Counter({
+            c: low[key][c] + more * (high[key][c] - low[key][c])
+            for c in set(low[key]) | set(high[key])})
+    total["coll_largest"] = low["coll_largest"] | high["coll_largest"]
     return total
 
 
@@ -930,11 +1055,12 @@ def _collective_record(cost, n_micro: int) -> Dict[str, float]:
 
 def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
           memo: Optional[dict] = None, *,
-          partitioned: Optional[bool] = None) -> Dict[str, Any]:
+          partitioned: Optional[bool] = None,
+          shortcut: Optional[bool] = None) -> Dict[str, Any]:
     """Lower (and, with `compile_`, trace) one step of `cfg` at `shape`
     on `mesh`; returns the record's fields after its naming keys.  The
     trace is partitioned over `mesh` where `_splits_the_step`, unless
-    `partitioned` says otherwise."""
+    `partitioned` says otherwise; `shortcut` is `traced_cost`'s."""
     result: Dict[str, Any] = {}
     model = build(cfg)
     rules = _shape_rules(train_lib.make_rules(cfg, mesh), shape, mesh, cfg)
@@ -980,10 +1106,11 @@ def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
     split = ({"mesh": mesh, "shardings": {k: b_shard[k] for k in inputs}}
              if partitioned else {})
     cost = traced_cost(cfg, shape.kind, inputs, shape.seq_len, rules,
-                       memo=memo, **split)
+                       memo=memo, shortcut=shortcut, **split)
     if shape.kind == "train" and cfg.remat != "none":
         plain = traced_cost(dataclasses.replace(cfg, remat="none"), "train",
-                            inputs, shape.seq_len, rules, memo=memo, **split)
+                            inputs, shape.seq_len, rules, memo=memo,
+                            shortcut=shortcut, **split)
         remat_dup = remat_duplication(cost["matmuls"], plain["matmuls"])
     else:
         remat_dup = 1.0        # nothing is recomputed without a backward

@@ -28,7 +28,7 @@ def make_prefill_step(model, rules=None):
     def prefill_step(params, batch, cache):
         if model.cfg.is_encdec:
             # enc-dec prefill: encode + teacher-forced decoder pass.
-            cache = model.start_cache(params, batch["frames"], cache)
+            cache = model.start_cache(params, batch["frames"], cache, rules)
             logits, _ = model.forward(params, batch, rules)
             return logits[:, -1], cache
         return model.prefill(params, batch, cache, rules)

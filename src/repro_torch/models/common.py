@@ -13,7 +13,8 @@ a mesh that splits the step, runs it on DTensors: there
 or the cache slots are, `batched` makes a mask or state split as its
 operand's batch, `take_rows` looks an embedding up on its split rows,
 `reduce_over` all-reduces a partial result, `contract` runs a batched
-product with its batch and heads kept split, and `write_rows_` /
+product with its batch and heads kept split, `project` a layer's
+product with a weight split as GSPMD splits it, and `write_rows_` /
 `write_columns_` write a cache on this rank's shard.  The eager
 single-card steps apply no placement: on a plain tensor each does what
 the model wrote, and nothing more.
@@ -174,6 +175,29 @@ def contract(equation: str, *operands: torch.Tensor) -> torch.Tensor:
         stride=tuple(compute_global_tensor_info(res, mesh, places)[1]))
 
 
+def project(equation: str, x: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+    """`torch.einsum(equation, x, w)`: activations `x` times a weight
+    `w`.  On plain tensors it is that call.  Over DTensors it is split
+    as GSPMD splits a layer's product: on a mesh axis that splits a
+    dimension of the activations the weight lacks (their batch, on the
+    data axes), a weight split there (FSDP's input dimension) is
+    gathered first, and the activations keep their split; on an axis
+    that splits only the weight (a one-token step, whose batch of one no
+    axis splits), the weight keeps its split, and a contracted dimension
+    leaves the product a partial sum, reduced where it is next used, not
+    the weight gathered.  The product then runs as `contract` runs
+    it."""
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        xs, ws = equation.split("->")[0].split(",")
+        w = w.redistribute(w.device_mesh, [
+            Replicate() if n > 1 and p.is_shard() and q.is_shard()
+            and xs[q.dim] not in ws else p
+            for p, q, n in zip(w.placements, x.placements,
+                               w.device_mesh.shape)])
+    return contract(equation, x, w)
+
+
 def token_positions(tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
     """(B, S) positions start .. start + S - 1 on every row of `tokens`
     (B, S, ...), one arange expanded.  For a DTensor the arange is this
@@ -230,23 +254,32 @@ def slot_positions(cache: torch.Tensor) -> torch.Tensor:
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """`table[ids]`: the rows of an embedding table.  A DTensor table is
-    gathered over every axis but the one that splits its rows (as FSDP
-    gathers a weight before use).  Where its rows are split, each rank
-    looks up the ids its rows hold (zeros for the others) and the
-    lookups are summed over the rows' axes, one all-reduce of the
-    result: no rank holds the whole table."""
+    """`table[ids]`: the rows of an embedding table.  A DTensor table
+    larger than the lookup's result keeps its split columns, as GSPMD
+    keeps a gather's operand split on a dimension the gather passes
+    through: each rank looks up every id on its own columns (the ids
+    gathered over those axes, not the table), and the result, split on
+    its last dimension there, takes the ids' placements (an all-to-all
+    of the result, or its gather).  A smaller table is gathered over every
+    axis but the one that splits its rows (as FSDP gathers a weight
+    before use).  Where its rows are split, each rank looks up the ids
+    its rows hold (zeros for the others) and the lookups are summed over
+    the rows' axes, one all-reduce of the result: no rank holds the
+    whole table."""
     if not isinstance(table, DTensor):
         return table[ids]
     mesh = table.device_mesh
-    table = table.redistribute(mesh, [
-        Replicate() if p.is_shard() and p.dim != 0 else p
-        for p in table.placements])
-    if not is_split(table, 0):
+    if table.numel() <= ids.numel() * table.shape[1]:
+        table = table.redistribute(mesh, [
+            Replicate() if p.is_shard() and p.dim != 0 else p
+            for p in table.placements])
+    if not is_split(table, 0) and not is_split(table, 1):
         return table[ids]
-    out_p = [Replicate() if t.is_shard() else p
+    ids_p = [Replicate() if t.is_shard() else p
              for t, p in zip(table.placements, ids.placements)]
-    ids_l = ids.redistribute(mesh, out_p).to_local()
+    out_p = [Shard(ids.ndim) if t.is_shard() and t.dim == 1 else p
+             for t, p in zip(table.placements, ids_p)]
+    ids_l = ids.redistribute(mesh, ids_p).to_local()
     local = table.to_local()
     at = ids_l - compute_local_shape_and_global_offset(
         table.shape, mesh, table.placements)[1][0]
@@ -254,8 +287,11 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows = F.embedding(at.clamp(0, local.shape[0] - 1), local)
     rows = reduce_over(torch.where(inside[..., None], rows, 0), table, 0)
     shape = (*ids.shape, table.shape[1])
-    return DTensor.from_local(rows, mesh, out_p, run_check=False,
+    rows = DTensor.from_local(rows, mesh, out_p, run_check=False,
                               shape=shape, stride=contiguous_stride(*shape))
+    if out_p == ids_p:
+        return rows
+    return rows.redistribute(mesh, ids.placements)
 
 
 def contiguous_stride(*shape: int) -> Tuple[int, ...]:

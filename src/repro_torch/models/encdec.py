@@ -103,6 +103,16 @@ def _mlp(h, p):
     return torch.einsum("bsf,fd->bsd", ACTIVATIONS["gelu"](up), p["w_down"])
 
 
+def _settled(t, rules):
+    """A sublayer's output, a partial sum over the model axis where its
+    last product contracted split heads, on the residual stream's
+    placement: one all-reduce (or reduce-scatter) before the next norm,
+    which reads its input more than once, would reduce it at each read."""
+    if rules is None:
+        return t
+    return logical_constraint(t, rules, "batch", None, "act_embed")
+
+
 def _remat(body, cfg: ModelConfig):
     return remat(body, "none" if cfg.remat == "none" else "full")
 
@@ -129,9 +139,10 @@ class EncDecLM:
             if rules is not None:
                 h = logical_constraint(h, rules, "batch", None, "act_embed")
             y = apply_norm(h, lp["ln1"], cfg.norm)
-            h = h + _mha(y, lp["attn"], full, kv_chunk=cfg.attn_kv_chunk)
+            h = h + _settled(_mha(y, lp["attn"], full,
+                                  kv_chunk=cfg.attn_kv_chunk), rules)
             y = apply_norm(h, lp["ln2"], cfg.norm)
-            return h + _mlp(y, lp["mlp"])
+            return h + _settled(_mlp(y, lp["mlp"]), rules)
 
         body = _remat(body, cfg)
         for lp in tree_unbind(params["enc_layers"]):
@@ -160,12 +171,13 @@ class EncDecLM:
             if rules is not None:
                 h = logical_constraint(h, rules, "batch", None, "act_embed")
             y = apply_norm(h, lp["ln1"], cfg.norm)
-            h = h + _mha(y, lp["self_attn"], causal,
-                         kv_chunk=cfg.attn_kv_chunk)
+            h = h + _settled(_mha(y, lp["self_attn"], causal,
+                                  kv_chunk=cfg.attn_kv_chunk), rules)
             y = apply_norm(h, lp["ln_x"], cfg.norm)
-            h = h + _mha(y, lp["cross_attn"], xs_full, kv=enc)
+            h = h + _settled(_mha(y, lp["cross_attn"], xs_full, kv=enc),
+                             rules)
             y = apply_norm(h, lp["ln2"], cfg.norm)
-            return h + _mlp(y, lp["mlp"])
+            return h + _settled(_mlp(y, lp["mlp"]), rules)
 
         body = _remat(body, cfg)
         for lp in tree_unbind(params["dec_layers"]):
@@ -232,12 +244,14 @@ class EncDecLM:
             span = slice(write, write + 1)
             write_columns_(sk, span, kq.to(sk.dtype))
             write_columns_(sv, span, vq.to(sv.dtype))
-            x = x + _mha_cached(y, lp["self_attn"], self_mask, sk, sv)
+            x = x + _settled(_mha_cached(y, lp["self_attn"], self_mask, sk,
+                                         sv), rules)
             y = apply_norm(x, lp["ln_x"], cfg.norm)
-            x = x + _mha_cached(y, lp["cross_attn"], cross_mask,
-                                cache["cross_k"][i], cache["cross_v"][i])
+            x = x + _settled(_mha_cached(y, lp["cross_attn"], cross_mask,
+                                         cache["cross_k"][i],
+                                         cache["cross_v"][i]), rules)
             y = apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _mlp(y, lp["mlp"])
+            x = x + _settled(_mlp(y, lp["mlp"]), rules)
         x = apply_norm(x, params["final_norm"], cfg.norm)
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"]).float()
         new_cache = {**cache, "index": idx + 1}

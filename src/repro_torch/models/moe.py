@@ -13,6 +13,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import contract
 
@@ -106,6 +107,41 @@ def _expert_ffn(xe: torch.Tensor, p: Dict, act) -> torch.Tensor:
     return contract("ecf,efd->ecd", h, p["w_down"])
 
 
+def _experts_input(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The experts' input `xe` (E, G, C, D): where the dispatch
+    contracted split tokens it is a partial sum, reduced here once, as
+    XLA's program reduces it: scattered onto D over the mesh axes that
+    split the experts' weights `w` (E, D, F) on theirs (FSDP), so the
+    expert products keep those weights split, and all-reduced over the
+    other axes.  Not a partial sum each product reduces again, nor one
+    the backward gathers.  A plain tensor as it is."""
+    if not isinstance(xe, DTensor):
+        return xe
+    return xe.redistribute(xe.device_mesh, [
+        p if not p.is_partial() else
+        Shard(3) if q.is_shard() and q.dim == 1 else Replicate()
+        for p, q in zip(xe.placements, w.placements)])
+
+
+class _SplitOnExperts(torch.autograd.Function):
+    """The routing weights `w` (..., T, E, C) split on E over the mesh
+    axes that split the experts' output `ye` (E, ...) and that hold `w`
+    whole: each rank takes its experts' part.  The gradient stays split
+    as GSPMD keeps it (the routing's backward reduces over E where it
+    sums), not gathered back onto the whole weights."""
+
+    @staticmethod
+    def forward(ctx, w, ye):
+        return w.redistribute(w.device_mesh, [
+            Shard(w.ndim - 2) if q.is_shard() and q.dim == 0
+            and p.is_replicate() else p
+            for p, q in zip(w.placements, ye.placements)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 GROUP_SIZE = 2048
 
 
@@ -133,9 +169,12 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: MoEConfig, act,
     # weights, bf16 is exact for the former and ample for the latter.
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
-    xe = contract("gtec,gtd->egcd", dispatch, xg)
+    xe = _experts_input(contract("gtec,gtd->egcd", dispatch, xg),
+                        p["w_gate"])
     e, _, c, _ = xe.shape
     ye = _expert_ffn(xe.reshape(e, g * c, d), p, act).reshape(e, g, c, d)
+    if isinstance(ye, DTensor):
+        combine = _SplitOnExperts.apply(combine, ye)
     out = contract("egcd,gtec->gtd", ye, combine).reshape(t, d)
 
     if cfg.num_shared:

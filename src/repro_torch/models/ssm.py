@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import batched, contract, remat
+from repro_torch.models.common import batched, contract, project, remat
 
 CHUNK = 16
 LOG_DECAY_MIN = -8.0
@@ -131,21 +131,21 @@ def rwkv6_time_mix(x: torch.Tensor, p: Dict, *, num_heads: int,
     # Finch data-dependent token shift: one fused W1 (D, 5R), tanh, then a
     # per-stream W2 (R, D); streams ordered (r, k, v, g, w).
     base = x + xx * p["mu_x"]
-    r5 = torch.tanh(torch.einsum("bsd,dnr->bsnr", base, p["ts_w1"]))
-    dyn = torch.einsum("bsnr,nrd->bsnd", r5, p["ts_w2"])
+    r5 = torch.tanh(project("bsd,dnr->bsnr", base, p["ts_w1"]))
+    dyn = project("bsnr,nrd->bsnd", r5, p["ts_w2"])
     streams = {}
     for i, name in enumerate(("r", "k", "v", "g", "w")):
         mix = p[f"mu_{name}"][None, None] + dyn[:, :, i]
         streams[name] = x + xx * mix
-    r = torch.einsum("bsd,dhk->bshk", streams["r"], p["wr"])
-    k = torch.einsum("bsd,dhk->bshk", streams["k"], p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", streams["v"], p["wv"])
-    g = F.silu(torch.einsum("bsd,de->bse", streams["g"], p["wg"]))
+    r = project("bsd,dhk->bshk", streams["r"], p["wr"])
+    k = project("bsd,dhk->bshk", streams["k"], p["wk"])
+    v = project("bsd,dhk->bshk", streams["v"], p["wv"])
+    g = F.silu(project("bsd,de->bse", streams["g"], p["wg"]))
     # Data-dependent decay (the Finch contribution).
-    wdyn = torch.einsum("bsr,rd->bsd",
-                        torch.tanh(torch.einsum("bsd,dr->bsr", streams["w"],
-                                                p["w_lora_a"])),
-                        p["w_lora_b"])
+    wdyn = project("bsr,rd->bsd",
+                   torch.tanh(project("bsd,dr->bsr", streams["w"],
+                                      p["w_lora_a"])),
+                   p["w_lora_b"])
     w = torch.exp(-torch.exp((p["w0"][None, None] + wdyn).float()))
     w = w.reshape(b, s, num_heads, dk)
 
@@ -158,7 +158,7 @@ def rwkv6_time_mix(x: torch.Tensor, p: Dict, *, num_heads: int,
     # Per-head group norm, then gate and project out.
     y = _group_norm(y, p["gn_scale"], p["gn_bias"])
     y = y.reshape(b, s, d) * g
-    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p["wo"])
+    out = project("bse,ed->bsd", y.to(x.dtype), p["wo"])
     new_state = {"shift": x[:, -1], "wkv": s_new}
     return out, new_state
 
@@ -180,10 +180,10 @@ def rwkv6_channel_mix(x: torch.Tensor, p: Dict,
     xx = xprev - x
     xk = x + xx * p["mu_k"]
     xr = x + xx * p["mu_r"]
-    k = torch.einsum("bsd,df->bsf", xk, p["wk"])
+    k = project("bsd,df->bsf", xk, p["wk"])
     k = torch.square(F.relu(k))
-    kv = torch.einsum("bsf,fd->bsd", k, p["wv"])
-    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["wr"]))
+    kv = project("bsf,fd->bsd", k, p["wv"])
+    r = torch.sigmoid(project("bsd,de->bse", xr, p["wr"]))
     return r * kv, {"shift": x[:, -1]}
 
 

@@ -44,7 +44,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
-                                       norm_spec, remat, slot_positions,
+                                       norm_spec, project, remat,
+                                       slot_positions,
                                        stack_specs, take_rows,
                                        token_positions, tree_index,
                                        tree_unbind, write_columns_,
@@ -403,6 +404,11 @@ def _hymba_fused(x, p, cfg: ModelConfig, positions, *, window, theta,
 
     m_state = cache["mamba"] if cache is not None else None
     m_out, m_new = ssm.mamba_mixer(x, p["mamba"], state=m_state)
+    if rules is not None:
+        # The Mamba heads' output projection leaves a partial sum, which
+        # its norm reads twice: reduced once, onto the residual stream's
+        # placement, first.
+        m_out = logical_constraint(m_out, rules, "batch", "seq", "act_embed")
 
     fused = 0.5 * (attn._rms(a_flat, p["attn_out_norm"]["scale"])
                    + attn._rms(m_out, p["mamba_out_norm"]["scale"]))
@@ -442,7 +448,12 @@ def _layer_forward(x, p, cfg: ModelConfig, positions, layer_idx,
         return h
 
     def exit_tp(h):
-        if seq_parallel:
+        # A row-parallel output is a partial sum over the model axis: it
+        # takes the residual stream's placement before it is used, one
+        # reduction (a reduce-scatter under sequence parallelism, else an
+        # all-reduce, as XLA's program does), so a norm, which reads its
+        # input more than once, does not reduce it at each read.
+        if rules is not None:
             return logical_constraint(h, rules, "batch", "seq", "act_embed")
         return h
 
@@ -451,16 +462,18 @@ def _layer_forward(x, p, cfg: ModelConfig, positions, layer_idx,
     mix, mix_new = _mixer_forward(h, p, cfg, positions, layer_idx,
                                   window=window, theta=theta,
                                   cache=mix_cache, rules=rules)
+    mix = exit_tp(mix)
     if cfg.sandwich_norm:
         mix = apply_norm(mix, p["ln1_post"], cfg.norm)
-    x = x + exit_tp(mix)
+    x = x + mix
 
     h = enter_tp(apply_norm(x, p["ln2"], cfg.norm))
     ffn_cache = cache.get("ffn") if cache is not None else None
     f, aux, ffn_new = _ffn_forward(h, p, cfg, layer_idx, ffn_cache)
+    f = exit_tp(f)
     if cfg.sandwich_norm:
         f = apply_norm(f, p["ln2_post"], cfg.norm)
-    x = x + exit_tp(f)
+    x = x + f
 
     new_cache = None
     if cache is not None:
@@ -547,7 +560,7 @@ class TransformerLM:
             x = logical_constraint(x, rules, "batch", None, "act_embed")
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
-        logits = torch.einsum("bsd,dv->bsv", x, head).float()
+        logits = project("bsd,dv->bsv", x, head).float()
         if rules is not None:
             logits = logical_constraint(logits, rules, "batch", None,
                                         "act_vocab")

@@ -8,7 +8,10 @@ The update is the reference's term by term (`apply`); it is not
 numbers.  `apply` consumes the state it is given: the master weights and
 moments are updated in place (the reference donates them) and returned
 in the new state.  The state's shardings on a device mesh are
-`launch/train.state_shardings`'s.
+`launch/train.state_shardings`'s; there a gradient that arrives as a
+partial sum, or on other placements than its master's, is redistributed
+onto them once before the update (FSDP's gradient reduce-scatter), so the
+update runs on each rank's shard and never gathers a moment.
 """
 from __future__ import annotations
 
@@ -17,10 +20,11 @@ from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import (first_tensor, params_from_numpy,
                                        params_to_numpy, tree_leaves,
-                                       tree_map)
+                                       tree_map, tree_unflatten)
 
 Pytree = Any
 
@@ -62,11 +66,22 @@ def global_norm(tree: Pytree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
+def _placed_as(g: torch.Tensor, master: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient on its master's placements (a partial sum
+    reduce-scattered there); any other gradient as it is."""
+    if isinstance(g, DTensor) and g.placements != master.placements:
+        return g.redistribute(master.device_mesh, master.placements)
+    return g
+
+
 @torch.no_grad()
 def apply(grads: Pytree, state: AdamWState, cfg: AdamWConfig,
           lr_scale: "torch.Tensor | float" = 1.0
           ) -> Tuple[Pytree, AdamWState, dict]:
     """Returns (new bf16 params, new state, metrics)."""
+    grads = tree_unflatten(grads, [
+        _placed_as(g, ma) for g, ma in zip(tree_leaves(grads),
+                                           tree_leaves(state.master))])
     step = state.step + 1
     gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),

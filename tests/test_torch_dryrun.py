@@ -14,10 +14,11 @@ reference's, on the CPU.
   reference's keys (the trace is partitioned over the mesh); on a
   1 x 1 mesh the argument bytes equal the bytes of the tensors a step
   holds, and the plain trace is the device's;
-* the trace: FLOPs equal FlopCounterMode's; the one-layer-per-kind
-  shortcut's operations, FLOPs, bytes and matrix products equal the
-  whole-depth trace for every arch and step kind, and its estimated peak
-  is within 15 % of it; the shortcut is taken by the operation count,
+* the trace: FLOPs equal FlopCounterMode's; the shortcut over periods
+  of the layer pattern (kept in the model's order) gives the whole-depth
+  trace's operations, FLOPs, bytes, matrix products and peak for every
+  arch and step kind at smoke() and at deeper depths, one with a
+  remainder among them; the shortcut is taken by the operation count,
   not the clock; `remat_duplication` is 1.0 without remat and above 1
   with;
 * `collective_bytes` on hand-worked cases;
@@ -323,18 +324,33 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
 # 0.994 / 0.802 / 1.019 / 1.019 (was 2.39 / 1.127 / 1.92 / 1.92);
 # rwkv6's 0.914 / 0.689 / 0.917 / 0.917 (was 3.12 / 2.24 / 1.15 /
 # 1.15), its train's largest 65,536 B, XLA's (was 81,920);
-# deepseek-v2-lite's prefill and decodes 1.199 / 0.703 / 1.000.
-# deepseek's train (all-gather 1.713 x XLA's, largest 327,680 B against
-# 163,840: ROADMAP Queue 3 item 10) is printed.
+# deepseek-v2-lite's prefill and decodes 1.199 / 0.703 / 1.000.  Since
+# the experts' input is reduced once onto the weights' split and the
+# routing weights' gradient stays split on the experts (models/moe.py),
+# deepseek's train is held too: all-gather 0.997 x XLA's, largest
+# 163,840 B, XLA's (was 1.713 and 327,680).
 HELD = ("largest", "gather")
 HELD_TO_REF = {
     "gemma3-1b": {"train": HELD, "prefill": HELD + ("flops",),
                   "decode": HELD + ("flops",), "decode_chunked": HELD},
     "rwkv6-7b": {cell: HELD for cell in MINI_CELLS},
-    "deepseek-v2-lite-16b": {cell: HELD for cell in MINI_CELLS
-                             if cell != "train"},
+    "deepseek-v2-lite-16b": {cell: HELD for cell in MINI_CELLS},
     "qwen2-moe-a2.7b": {cell: HELD for cell in MINI_CELLS},
     "whisper-small": {cell: HELD for cell in MINI_CELLS}}
+# Cells whose "gather" check holds a band of their own, measured first:
+# the gathers the port used to add on top of its weights' are gone (the
+# update's float32 moments gathered to meet partial-sum gradients, and
+# the sandwich norm's partial sum reduced twice, then gathered), and
+# what is left is each weight gathered once in bf16, where XLA on the
+# CPU gathers it in float32 and, in a train step, again in the
+# backward: gemma3's train 0.422 (was 0.954), gemma3's prefill 0.393
+# (was 0.500), rwkv6's train 0.398 (was 0.914), whisper's train 0.447
+# (was 0.994; its sublayers' outputs, reduced once now before its
+# norms) x XLA's.
+GATHER_TO_REF_OF = {("gemma3-1b", "train"): (0.35, 0.5),
+                    ("gemma3-1b", "prefill"): (0.35, 0.5),
+                    ("rwkv6-7b", "train"): (0.35, 0.5),
+                    ("whisper-small", "train"): (0.35, 0.5)}
 
 
 @pytest.fixture(scope="module")
@@ -454,7 +470,8 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     """Every mini cell beside the reference's compiled one: argument and
     alias bytes as the two programs hold them; and the checks of
     HELD_TO_REF: no all-gather larger than XLA's largest, the traced
-    all-gather bytes within GATHER_TO_REF of XLA's, and on the cells with
+    all-gather bytes within GATHER_TO_REF of XLA's (GATHER_TO_REF_OF
+    where a cell has its own), and on the cells with
     no loop in XLA's program the FLOPs within FLOPS_TO_REF.  Each cell
     prints the whole comparison."""
     port, ref = mini_records
@@ -492,7 +509,8 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     if "largest" in held:
         assert 0 < big <= ref_big
     if "gather" in held:
-        assert GATHER_TO_REF[0] <= gather / ref_gather <= GATHER_TO_REF[1]
+        lo, hi = GATHER_TO_REF_OF.get((arch, cell), GATHER_TO_REF)
+        assert lo <= gather / ref_gather <= hi
     if "flops" in held:
         assert FLOPS_TO_REF[0] <= flops / ref_flops <= FLOPS_TO_REF[1]
 
@@ -558,31 +576,68 @@ STEP_KINDS = {"train": ("train", "none"),
               "prefill": ("prefill", "none"), "decode": ("decode", "none")}
 
 
+def at_depth(cfg, layers):
+    """`cfg` with `layers` layers (the encoder-decoder: in each stack)."""
+    if cfg.is_encdec:
+        return dataclasses.replace(cfg, num_layers=layers,
+                                   enc_dec=dataclasses.replace(
+                                       cfg.enc_dec, enc_layers=layers))
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+# Depths beyond smoke()'s, each arch's layers then cut into more periods
+# than two: gemma3's pattern of three at 7 layers (two periods and a
+# remainder of one) and at 10 (three and one, extrapolated from one
+# period and two); deepseek's dense layer and four MoE layers; six
+# periods of the other archs, extrapolated from two and three (a stacked
+# leaf of one layer changes the ops of a one-layer trace).  hymba's
+# smoke() global layers (0, 1) and the irregular (0, 3, 5) of 6 layers
+# have no period shorter than half the depth and trace whole.
+DEPTHS = [("gemma3-1b", 7), ("gemma3-1b", 10), ("deepseek-v2-lite-16b", 5),
+          ("rwkv6-7b", 6), ("qwen2-moe-a2.7b", 6), ("mistral-large-123b", 6),
+          ("whisper-small", 6), ("hymba-1.5b", 6)]
+
+
 @pytest.mark.parametrize("step", sorted(STEP_KINDS))
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_shortcut_equals_the_whole_depth(arch, step):
+@pytest.mark.parametrize("arch,layers",
+                         [(a, None) for a in ARCH_IDS] + DEPTHS)
+def test_shortcut_equals_the_whole_depth(arch, layers, step):
+    """The shortcut gives the whole-depth trace's additive counts and
+    peak.  A MoE serving step keeps its layers' auxiliary losses (a
+    4-byte scalar each) live for up to two layers, one more from the
+    third layer on than a trace of two periods shows: its extrapolated
+    peak may be up to 4 B a period above the whole depth's."""
     kind, remat = STEP_KINDS[step]
     cfg = dataclasses.replace(get_config(arch, smoke=True), remat=remat)
+    if layers is not None:
+        cfg = at_depth(cfg, layers)
+        if arch == "hymba-1.5b":
+            cfg = dataclasses.replace(cfg, global_layers=(0, 3, 5))
     inputs = _inputs(cfg, kind)
     short = dryrun.traced_cost(cfg, kind, inputs, 64, shortcut=True)
     full = dryrun.traced_cost(cfg, kind, inputs, 64, shortcut=False)
-    assert (short["trace_mode"], full["trace_mode"]) == ("shortcut", "full")
+    periods = dryrun.layer_period(cfg)[2]
+    assert short["trace_mode"] == ("shortcut" if periods >= 2 else "full")
+    assert full["trace_mode"] == "full"
+    assert (arch == "hymba-1.5b") == (periods < 2)
     for key in dryrun._ADDITIVE:
         assert short[key] == full[key], key
-    assert abs(short["peak"] / full["peak"] - 1) <= 0.15
+    if cfg.moe is not None and kind != "train":
+        assert 0 <= short["peak"] - full["peak"] <= 4 * periods
+    else:
+        assert short["peak"] == full["peak"]
     assert full["flops_micro"] > 0 and full["peak"] > 0
 
 
 def test_shortcut_is_decided_by_the_operation_count(monkeypatch):
-    """The shortcut is taken iff the one-of-each trace's operations,
+    """The shortcut is taken iff the one-period trace's operations,
     scaled to the whole depth, exceed SHORTCUT_OPS: the same cell takes
     the same trace however loaded the host is."""
     cfg = get_config("gemma3-1b", smoke=True)
     inputs = _inputs(cfg, "decode")
-    base = dryrun.trace_step(dryrun.depth_config(
-        cfg, {k: 1 for k in dryrun.layer_kinds(cfg)}), "decode", inputs, 64)
-    kinds = dryrun.layer_kinds(cfg)
-    estimate = base["ops"] * sum(kinds.values()) / len(kinds)
+    one = dryrun.depth_config(cfg, 1)
+    base = dryrun.trace_step(one, "decode", inputs, 64)
+    estimate = base["ops"] * cfg.num_layers / one.num_layers
     for limit, mode in ((estimate, "full"), (estimate - 1, "shortcut")):
         monkeypatch.setattr(dryrun, "SHORTCUT_OPS", limit)
         assert dryrun.traced_cost(cfg, "decode", inputs, 64)["trace_mode"] \
@@ -614,19 +669,30 @@ def test_records_say_which_trace_ran(tmp_path, monkeypatch):
 
 
 def test_layer_kinds_and_depth_configs():
+    """The layer pattern's periods, and the configs cut to some of them
+    in the model's order: gemma3's 26 layers are four periods of five
+    local and one global layer and two local layers more; deepseek's
+    dense layer is the head of 26 MoE layers; whisper's period is one
+    encoder and one decoder layer; hymba's global layers (0, 15, 31)
+    repeat no period shorter than the model."""
     cfg = get_config("gemma3-1b")
-    kinds = dryrun.layer_kinds(cfg)
-    assert kinds == {(False, False): 22, (True, False): 4}
-    small = dryrun.depth_config(cfg, {(False, False): 2, (True, False): 1})
-    assert small.num_layers == 3 and dryrun.layer_kinds(small) == \
-        {(False, False): 2, (True, False): 1}
+    assert dryrun.layer_period(cfg) == (0, 6, 4)
+    small = dryrun.depth_config(cfg, 1)
+    assert small.num_layers == 8
+    assert dryrun.layer_sequence(small) == dryrun.layer_sequence(cfg)[:8]
+    assert dryrun.layer_sequence(dryrun.depth_config(cfg, 2)) == \
+        dryrun.layer_sequence(cfg)[:14]
+    assert dryrun.depth_config(cfg, 4).global_layers == \
+        tuple(i for i in range(26) if cfg.layer_is_global(i))
     ds = get_config("deepseek-v2-lite-16b")
-    assert dryrun.layer_kinds(ds) == {(True, True): 1, (True, False): 26}
-    small = dryrun.depth_config(ds, {(True, True): 1, (True, False): 2})
+    assert dryrun.layer_period(ds) == (1, 1, 26)
+    small = dryrun.depth_config(ds, 2)
     assert small.moe_dense_layers == (0,) and small.num_layers == 3
     wh = get_config("whisper-small")
-    small = dryrun.depth_config(wh, {("enc",): 1, ("dec",): 2})
-    assert (small.enc_dec.enc_layers, small.num_layers) == (1, 2)
+    assert dryrun.layer_period(wh) == (0, 2, 12)
+    small = dryrun.depth_config(wh, 2)
+    assert (small.enc_dec.enc_layers, small.num_layers) == (2, 2)
+    assert dryrun.layer_period(get_config("hymba-1.5b"))[2] == 1
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])

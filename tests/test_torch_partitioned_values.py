@@ -19,13 +19,25 @@ tensors in float32 (rtol = atol = 1e-5):
   splits it, four routing groups routed at once (two a rank), its
   experts and shared FFN split as the model axis splits them: the
   output and the aux loss, the mean over the groups of both ranks;
+  and, with the batch whole and the experts split, the routing weights
+  split on the experts with their gradient left split: the output and
+  the gradients of the input and the router;
 * inside `launch.dryrun.gspmd_choices`, as the dry run runs its step: a
   move between split dimensions (`Shard(0)` to `Shard(1)`, the
   all-to-all over the group) and the batched product
   (`models.common.contract`) with its operands split on the same
   letter, on different letters (the smaller moved by all-to-all) and on
   a contracted letter (a partial sum): the values and the operands'
-  gradients.
+  gradients;
+* a layer's products with a weight split on its input dimension
+  (`models.common.project`): one token beside it (the weight kept
+  split, the product a partial sum) and a batch split on the same axis
+  (the weight gathered), values and gradients; an embedding lookup on a
+  table that keeps its split columns (`models.common.take_rows`), its
+  value and the table's gradient; and a gemma3 layer
+  (`models.transformer._layer_forward`) whose row-parallel outputs are
+  reduced once before the sandwich norms, under the serving rules and
+  under sequence parallelism.
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
@@ -44,6 +56,7 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.launch import dryrun, train
+from repro_torch.launch.mesh import placements
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
 from repro_torch.models.common import contract
@@ -172,6 +185,27 @@ def _moe_cases(rank, mesh):
     torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
     torch.testing.assert_close(aux.full_tensor(), want_aux, rtol=TOL,
                                atol=TOL)
+    # The batch whole on every rank, the experts split: each rank takes
+    # its experts' routing weights, and their gradient stays split.
+    whole = {k: t.clone().requires_grad_(True) for k, t in
+             (("x", x), ("router", p["router"]))}
+    want, _ = moe.moe_ffn(whole["x"], {**p, "router": whole["router"]},
+                          cfg, act, group_size=group)
+    up = randn(*want.shape)
+    want_grads = torch.autograd.grad((want * up).sum(), list(whole.values()))
+    leaves = {k: distribute_tensor(t, mesh, [Replicate()])
+              .requires_grad_(True) for k, t in whole.items()}
+    placed = {k: distribute_tensor(t, mesh, split[k]) for k, t in p.items()}
+    with implicit_replication():
+        got, _ = moe.moe_ffn(leaves["x"],
+                             {**placed, "router": leaves["router"]}, cfg,
+                             act, group_size=group)
+        grads = torch.autograd.grad(
+            (got * distribute_tensor(up, mesh, [Replicate()])).sum(),
+            list(leaves.values()))
+    torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.full_tensor(), w, rtol=TOL, atol=TOL)
     return "moe"
 
 
@@ -215,6 +249,79 @@ def _contract_cases(rank, mesh):
     return "contract"
 
 
+def _layer_cases(rank, mesh):
+    rng = np.random.default_rng(5)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    # (equation, activations' shape and placement): one token, and a
+    # batch split on the axis that splits the weight's input dimension.
+    w = randn(8, 4, 3)
+    for x_shape, x_place in (((1, 1, 8), Replicate()), ((4, 2, 8), Shard(0))):
+        x = randn(*x_shape)
+        whole = [t.clone().requires_grad_(True) for t in (x, w)]
+        want = torch.einsum("bsd,dhk->bshk", *whole)
+        up = randn(*want.shape)
+        want_grads = torch.autograd.grad((want * up).sum(), whole)
+        split = [distribute_tensor(x, mesh, [x_place]).requires_grad_(True),
+                 distribute_tensor(w, mesh, [Shard(0)]).requires_grad_(True)]
+        with dryrun.gspmd_choices():
+            got = common.project("bsd,dhk->bshk", *split)
+            if x_place.is_replicate():
+                assert got.placements[0].is_partial()   # the weight kept
+            grads = torch.autograd.grad(
+                (got * distribute_tensor(up, mesh, [Replicate()])).sum(),
+                split)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                   atol=TOL)
+        for g, ww in zip(grads, want_grads):
+            torch.testing.assert_close(g.full_tensor(), ww, rtol=TOL,
+                                       atol=TOL)
+    # A table larger than its lookup keeps its split columns.
+    table = randn(16, 8)
+    ids = torch.from_numpy(rng.integers(0, 16, (1, 3)))
+    whole = table.clone().requires_grad_(True)
+    want = common.take_rows(whole, ids)
+    up = randn(*want.shape)
+    (want_grad,) = torch.autograd.grad((want * up).sum(), [whole])
+    split = distribute_tensor(table, mesh, [Shard(1)]).requires_grad_(True)
+    got = common.take_rows(split, distribute_tensor(ids, mesh, [Replicate()]))
+    (grad,) = torch.autograd.grad(
+        (got * distribute_tensor(up, mesh, [Replicate()])).sum(), [split])
+    torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(grad.full_tensor(), want_grad, rtol=TOL,
+                               atol=TOL)
+    assert grad.placements == (Shard(1),)
+    # A gemma3 layer: its FFN's and attention's outputs are partial sums
+    # over "model", each reduced once before its sandwich norm.
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import init_params, param_sharding
+    cfg = get_config("gemma3-1b", smoke=True)
+    specs = transformer.param_specs(cfg)["layer_list"][0]
+    gen = torch.Generator().manual_seed(6)
+    lp = init_params(gen, specs, dtype=torch.float32, device="cpu")
+    x = randn(2, 8, cfg.d_model)
+    for seq in (None, "model"):
+        rules = {**train.make_rules(cfg, ("model",)), "seq": seq}
+        pos = {"pos": common.token_positions(x)}
+        want, _, _ = transformer._layer_forward(x, lp, cfg, pos, 0)
+        places = common.tree_leaves(param_sharding(specs, rules),
+                                    lambda t: isinstance(t, tuple))
+        with dryrun.gspmd_choices(), implicit_replication():
+            dx = distribute_tensor(x, mesh, [Replicate()])
+            dlp = common.tree_unflatten(lp, [
+                distribute_tensor(t, mesh, placements(mesh, sp))
+                for t, sp in zip(common.tree_leaves(lp), places)])
+            got, _, _ = transformer._layer_forward(
+                dx, dlp, cfg, {"pos": common.token_positions(dx)}, 0,
+                rules=rules)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                   atol=TOL)
+    return "layer"
+
+
 def _rank(rank, store_path, out_dir):
     done = []
     try:
@@ -223,7 +330,7 @@ def _rank(rank, store_path, out_dir):
         mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
         done = [_attention_cases(rank, mesh), _latent_cases(rank, mesh),
                 _loss_cases(rank, mesh), _moe_cases(rank, mesh),
-                _contract_cases(rank, mesh)]
+                _contract_cases(rank, mesh), _layer_cases(rank, mesh)]
         dist.barrier()
     except Exception:
         done = [traceback.format_exc()]
@@ -249,5 +356,5 @@ def test_partitioned_values_equal_the_plain_path(tmp_path):
                 p.kill()
     for rank in (0, 1):
         said = (tmp_path / f"rank{rank}.txt").read_text()
-        assert said == "attention\nlatent\nloss\nmoe\ncontract", \
+        assert said == "attention\nlatent\nloss\nmoe\ncontract\nlayer", \
             f"rank {rank}:\n{said}"
