@@ -541,8 +541,9 @@ def sites():
     """While active, every trace keeps where in the port's code each
     collective it dispatched came from (kind, dtype, result shape and
     the two innermost frames of the port) and where its peak was
-    reached, with the largest storages then live.  Yields the list of
-    one entry per trace (`--sites`)."""
+    reached, with the storages then live ("peak_live": bytes, dtype and
+    shape as made, most bytes first).  Yields the list of one entry per
+    trace (`--sites`)."""
     global _SITES
     kept, _SITES = _SITES, []
     try:
@@ -588,6 +589,11 @@ class _Trace(TorchDispatchMode):
         self.largest: Counter = Counter()     # kind -> largest result
         self.sites: Optional[Counter] = None if _SITES is None else Counter()
         self.peak_site = ""
+        # With `sites`: each storage's dtype and shape as made, and the
+        # (bytes, dtype, shape) of every storage live at the peak, most
+        # bytes first.
+        self.made: Dict[int, tuple] = {}
+        self.peak_live: list = []
         # With `timeline` set: each op's name and the most live bytes
         # while it ran (`traced_cost`'s shortcut reads them).
         self.names: Optional[list] = None
@@ -615,9 +621,14 @@ class _Trace(TorchDispatchMode):
             held = self.holders[key] = [0, t.untyped_storage().nbytes(),
                                         key]
             self.live += held[1]
+            if self.sites is not None:
+                self.made[key] = (t.dtype, tuple(t.shape))
             if self.live > self.peak and self.sites is not None:
-                big = sorted((h[1] for h in self.holders.values()),
-                             reverse=True)[:3]
+                self.peak_live = sorted(
+                    ((h[1], *self.made[h[2]]) for h in self.holders.values()),
+                    key=lambda r: -r[0])
+                big = ", ".join(f"{str(d)[6:]}{list(shape)} {n} B"
+                                for n, d, shape in self.peak_live[:3])
                 self.peak_site = f"{_site()} (largest live {big})"
             self.peak = max(self.peak, self.live)
             self.window = max(self.window, self.live)
@@ -778,6 +789,7 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
     if tr.sites is not None:
         _SITES.append({"kind": kind, "layers": cfg.num_layers,
                        "peak": tr.peak, "peak_site": tr.peak_site,
+                       "peak_live": tr.peak_live,
                        "collectives": tr.sites})
     out = {"flops_micro": micro[0], "flops_once": tr.flops - micro[0],
            "bytes_micro": micro[1], "bytes_once": tr.bytes - micro[1],

@@ -20,7 +20,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import (contiguous_stride, contract,
-                                       is_split, reduce_over,
+                                       is_split, reduce_over, slot_positions,
                                        write_columns_, write_rows_)
 
 NEG_INF = -2.0e38
@@ -300,7 +300,7 @@ def maybe_qk_norm(q, k, p, eps=1e-6):
 
 def mla_forward(x: torch.Tensor, p: Dict, positions: torch.Tensor, *,
                 num_heads: int, qk_nope: int, qk_rope: int, v_dim: int,
-                rope_theta: float, mask: torch.Tensor,
+                rope_theta: float, window: Optional[int] = None,
                 kv_chunk: Optional[int] = None,
                 cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """Multi-head latent attention.
@@ -312,8 +312,19 @@ def mla_forward(x: torch.Tensor, p: Dict, positions: torch.Tensor, *,
     below the cache's length; a longer write starts at `index`, moved
     back so that it fits, as the reference's dynamic_update_slice does.
 
+    The mask is made from `positions` and `window`, causal against the
+    keys' positions (the cache is positional, no ring: slot i holds
+    token i).  Where the cache's slots are split (a DTensor on a mesh),
+    each rank makes its own rows' (`_latent_attention_split`), and no
+    mask is moved.
+
     Returns (attn_out (B,S,D_model), new_cache_entries).
     """
+    split = (cache is not None and isinstance(cache["c_kv"], DTensor)
+             and is_split(cache["c_kv"], 1))
+    if not split:
+        kv_pos = positions if cache is None else slot_positions(cache["c_kv"])
+        mask = make_mask(positions, kv_pos, window=window)
     b, s, _ = x.shape
     # Queries.
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])        # (B,S,H,nope+rope)
@@ -346,9 +357,10 @@ def mla_forward(x: torch.Tensor, p: Dict, positions: torch.Tensor, *,
         new_cache = {}
         c_use, kr_use = c_kv, k_rope
 
-    if isinstance(c_use, DTensor) and is_split(c_use, 1):
-        o = _latent_attention_split(q_nope, q_rope, c_use, kr_use, p, mask,
-                                    qk_nope, qk_rope, kv_chunk)
+    if split:
+        o = _latent_attention_split(q_nope, q_rope, c_use, kr_use, p,
+                                    positions, window, qk_nope, qk_rope,
+                                    kv_chunk)
     else:
         o = _latent_attention(q_nope, q_rope, c_use, kr_use, p["w_uk"],
                               p["w_uv"], mask, qk_nope, qk_rope, kv_chunk)
@@ -372,15 +384,19 @@ def _latent_attention(q_nope, q_rope, c, kr, w_uk, w_uv, mask, qk_nope,
     return gqa_attention(q_full, k, v, mask, scale=scale, kv_chunk=kv_chunk)
 
 
-def _latent_attention_split(q_nope, q_rope, c, kr, p, mask, qk_nope,
-                            qk_rope, kv_chunk):
+def _latent_attention_split(q_nope, q_rope, c, kr, p, positions, window,
+                            qk_nope, qk_rope, kv_chunk):
     """`_latent_attention` over a DTensor latent cache whose slots are
-    split (decode on a mesh), on each rank's local tensors: the latent
-    and the rope key are gathered whole over their slots once a call
-    (in the cache's dtype), and each rank expands and attends its rows
-    and the heads its weights hold.  (XLA instead expands each device's
-    slots and moves the float32 keys and values to the heads, an
-    all-to-all of about the same bytes.)"""
+    split (decode or prefill on a mesh), on each rank's local tensors:
+    the latent and the rope key are gathered whole over their slots once
+    a call (in the cache's dtype), and each rank expands and attends its
+    rows and the heads its weights hold.  (XLA instead expands each
+    device's slots and moves the float32 keys and values to the heads,
+    an all-to-all of about the same bytes.)  The mask is made on each
+    rank for its rows and every slot, from the queries' `positions`
+    (B, S) and `window` (causal, slot i holding token i), as
+    `mla_forward` makes it whole: only the positions move, never a
+    (B, S, Skv) mask."""
     mesh = c.device_mesh
     rows = [q.is_shard() and q.dim == 0 for q in c.placements]
     heads = [not r and w.is_shard() and w.dim == 1
@@ -389,11 +405,17 @@ def _latent_attention_split(q_nope, q_rope, c, kr, p, mask, qk_nope,
     wp = [Shard(1) if h else Replicate() for h in heads]
     qp = [Shard(0) if r else Shard(2) if h else Replicate()
           for r, h in zip(rows, heads)]
-    o = _latent_attention(
-        *(t.redistribute(mesh, qp).to_local() for t in (q_nope, q_rope)),
-        *(t.redistribute(mesh, cp).to_local() for t in (c, kr)),
-        *(p[w].redistribute(mesh, wp).to_local() for w in ("w_uk", "w_uv")),
-        mask.redistribute(mesh, cp).to_local(), qk_nope, qk_rope, kv_chunk)
+    if not isinstance(positions, DTensor):
+        positions = DTensor.from_local(positions, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+    local = [*(t.redistribute(mesh, qp).to_local() for t in (q_nope, q_rope)),
+             *(t.redistribute(mesh, cp).to_local() for t in (c, kr)),
+             *(p[w].redistribute(mesh, wp).to_local()
+               for w in ("w_uk", "w_uv"))]
+    mask = make_mask(positions.redistribute(mesh, cp).to_local(),
+                     slot_positions(local[2]), window=window)
+    o = _latent_attention(*local, mask, qk_nope, qk_rope, kv_chunk)
     shape = (*q_nope.shape[:3], p["w_uv"].shape[2])
     return DTensor.from_local(o.contiguous(), mesh, qp, run_check=False,
                               shape=shape, stride=contiguous_stride(*shape))

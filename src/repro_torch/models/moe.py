@@ -61,7 +61,26 @@ def route(logits: torch.Tensor, cfg: MoEConfig
     logits: (..., T, E), the leading dimensions routing groups, each
     routed alone (the reference's `jax.vmap(route)` over its groups).
     Returns (dispatch (..., T, E, C) {0,1} float, combine (..., T, E, C)
-    float, aux_loss (...)).
+    float, aux_loss (...)).  `moe_ffn` makes the two from their factors
+    in its compute dtype (`route_factors`).
+    """
+    kept, gated, slots, aux = route_factors(logits, cfg, torch.float32)
+    return spread(kept, slots), spread(gated, slots), aux
+
+
+def route_factors(logits: torch.Tensor, cfg: MoEConfig, dtype: torch.dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """`route`'s dispatch and combine as factors, each of which `spread`
+    makes whole: (kept (..., T, K, E) {0,1}, gated (..., T, K, E) gate
+    weights, slots (..., T, K, C) {0,1}, all three in `dtype`, aux_loss
+    (...) float32).
+
+    Each (..., T, E, C) tensor is made in `dtype` directly: a token's
+    top-k experts are distinct, so at most one k contributes to each
+    (t, e, c), and the product is one term rounded once, the float32
+    result cast to `dtype` bit for bit, with no float32 (..., T, E, C)
+    tensor made.
     """
     t = logits.shape[-2]
     e = cfg.num_experts
@@ -84,19 +103,22 @@ def route(logits: torch.Tensor, cfg: MoEConfig
     pos = pos_flat.reshape(*groups, k, t, e).transpose(-3, -2)
     within_cap = (pos < c) & (onehot > 0)
 
-    slot_onehot = _one_hot((pos * onehot).sum(-1).to(torch.int64), c)
+    slots = _one_hot((pos * onehot).sum(-1).to(torch.int64), c).to(dtype)
     keep = within_cap.any(-1)                                  # (.., T, K)
-    dispatch = torch.einsum("...tke,...tkc->...tec",
-                            onehot * keep[..., None], slot_onehot)
-    combine = torch.einsum("...tke,...tkc->...tec",
-                           onehot * (gate_vals * keep)[..., None],
-                           slot_onehot)
+    kept = (onehot * keep[..., None]).to(dtype)
+    gated = (onehot * (gate_vals * keep)[..., None]).to(dtype)
 
     # Load-balancing auxiliary loss (Switch/GShard form).
     me = probs.mean(-2)                                        # (.., E)
     ce = onehot.sum(-2).mean(-2)                               # frac routed
     aux = cfg.aux_loss_coef * e * torch.sum(me * ce, dim=-1)
-    return dispatch, combine, aux
+    return kept, gated, slots, aux
+
+
+def spread(a: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """A routing tensor (..., T, E, C) from its factors: `a` (..., T, K,
+    E) over the capacity slots `slots` (..., T, K, C)."""
+    return torch.einsum("...tke,...tkc->...tec", a, slots)
 
 
 def _expert_ffn(xe: torch.Tensor, p: Dict, act) -> torch.Tensor:
@@ -163,16 +185,21 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: MoEConfig, act,
     g = t // gs
     xg = xt.reshape(g, gs, d)
     logits = torch.einsum("gtd,de->gte", xg, p["router"])
-    dispatch, combine, aux = route(logits, cfg)
-    aux = aux.mean()
     # (g, gs, E, C) one-hots in compute dtype: values are {0,1} / gate
     # weights, bf16 is exact for the former and ample for the latter.
-    dispatch = dispatch.to(x.dtype)
-    combine = combine.to(x.dtype)
-    xe = _experts_input(contract("gtec,gtd->egcd", dispatch, xg),
+    # Each is made from its factors where it is used, so a serving step
+    # holds one at a time: the dispatch is freed before the experts run
+    # and the combine made after them, when the experts' input (and the
+    # product's own layout, which the reshape copies) is freed too.
+    kept, gated, slots, aux = route_factors(logits, cfg, x.dtype)
+    aux = aux.mean()
+    xe = _experts_input(contract("gtec,gtd->egcd", spread(kept, slots), xg),
                         p["w_gate"])
     e, _, c, _ = xe.shape
-    ye = _expert_ffn(xe.reshape(e, g * c, d), p, act).reshape(e, g, c, d)
+    xe = xe.reshape(e, g * c, d)
+    ye = _expert_ffn(xe, p, act).reshape(e, g, c, d)
+    del xe
+    combine = spread(gated, slots)
     if isinstance(ye, DTensor):
         combine = _SplitOnExperts.apply(combine, ye)
     out = contract("egcd,gtec->gtd", ye, combine).reshape(t, d)

@@ -45,7 +45,6 @@ from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
                                        norm_spec, project, remat,
-                                       slot_positions,
                                        stack_specs, take_rows,
                                        token_positions, tree_index,
                                        tree_unbind, write_columns_,
@@ -345,22 +344,15 @@ def _mixer_forward(x, p, cfg: ModelConfig, positions, layer_idx_global,
                             theta=theta, cache=cache, rules=rules)
     if cfg.mixer == "mla":
         m = cfg.mla
-        pos = positions["pos"]
-        if cache is None:
-            mask = attn.make_mask(pos, pos, window=window)
-            out, _ = attn.mla_forward(
-                x, p["attn"], pos, num_heads=cfg.num_heads, qk_nope=m.qk_nope,
-                qk_rope=m.qk_rope, v_dim=m.v_dim, rope_theta=cfg.rope_theta,
-                mask=mask, kv_chunk=cfg.attn_kv_chunk)
-            return out, None
-        kv_pos = slot_positions(cache["c_kv"])
-        # MLA cache is positional (no ring): slot i holds token i; causal
-        # masking against the current positions is the only validity needed.
-        mask = attn.make_mask(pos, kv_pos, window=window)
-        return attn.mla_forward(
-            x, p["attn"], pos, num_heads=cfg.num_heads, qk_nope=m.qk_nope,
-            qk_rope=m.qk_rope, v_dim=m.v_dim, rope_theta=cfg.rope_theta,
-            mask=mask, kv_chunk=cfg.attn_kv_chunk, cache=cache)
+        # The mask is made in mla_forward from the positions: causal
+        # against the positional cache (no ring: slot i holds token i),
+        # on each rank for its own rows where the cache's slots are split.
+        out, new_cache = attn.mla_forward(
+            x, p["attn"], positions["pos"], num_heads=cfg.num_heads,
+            qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_dim=m.v_dim,
+            rope_theta=cfg.rope_theta, window=window,
+            kv_chunk=cfg.attn_kv_chunk, cache=cache)
+        return out, (None if cache is None else new_cache)
     if cfg.mixer == "rwkv6":
         h = cfg.d_model // cfg.rwkv.head_size
         return ssm.rwkv6_time_mix(x, p["attn"], num_heads=h, state=cache)

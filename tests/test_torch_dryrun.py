@@ -13,7 +13,9 @@ reference's, on the CPU.
   in a subprocess with 8 forced host devices), all under the
   reference's keys (the trace is partitioned over the mesh); on a
   1 x 1 mesh the argument bytes equal the bytes of the tensors a step
-  holds, and the plain trace is the device's;
+  holds, and the plain trace is the device's; deepseek's mini prefill
+  over a slot-split cache moves no bool tensor and holds no float32
+  routing tensor at its peak;
 * the trace: FLOPs equal FlopCounterMode's; the shortcut over periods
   of the layer pattern (kept in the model's order) gives the whole-depth
   trace's operations, FLOPs, bytes, matrix products and peak for every
@@ -50,6 +52,7 @@ from repro_torch.launch import serve as serve_lib
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.shapes import ShapeSpec
 from repro_torch import optim
+from repro_torch.models import moe
 from repro_torch.models.common import (DEFAULT_RULES, ParamSpec,
                                        init_params, param_shapes,
                                        tree_leaves, tree_unflatten)
@@ -292,8 +295,14 @@ PEAK_TO_REF = (0.5, 2.0)
 # one-hots of four groups of 2048 tokens hold most of both), held in a
 # band of its own: its batched products keep batch and heads split
 # (`models.common.contract`), so the copies DTensor's einsum gathered are
-# gone (0.501 before, inside PEAK_TO_REF by 0.001).
-PEAK_TO_REF_OF = {"qwen2-moe-a2.7b": (0.43, 0.53)}
+# gone (0.501 before, inside PEAK_TO_REF by 0.001).  Since the routing
+# makes its dispatch and combine in bf16 from their factors, each where
+# it is used (`models.moe.route_factors`), with no float32 copy beside
+# them, the MoE mini train peaks are held in bands of their own,
+# measured first: qwen2-moe 0.362 (was 0.476), deepseek-v2-lite 0.486
+# (was 0.659, in PEAK_TO_REF).
+PEAK_TO_REF_OF = {"qwen2-moe-a2.7b": (0.33, 0.40),
+                  "deepseek-v2-lite-16b": (0.44, 0.54)}
 # gemma3's traced all-gather bytes over XLA's on the four mini cells,
 # measured first (PERF.md §6): train 1.453, prefill 0.500, decode
 # 0.590, chunked decode 0.736.  XLA on the CPU gathers weights in
@@ -324,7 +333,9 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
 # 0.994 / 0.802 / 1.019 / 1.019 (was 2.39 / 1.127 / 1.92 / 1.92);
 # rwkv6's 0.914 / 0.689 / 0.917 / 0.917 (was 3.12 / 2.24 / 1.15 /
 # 1.15), its train's largest 65,536 B, XLA's (was 81,920);
-# deepseek-v2-lite's prefill and decodes 1.199 / 0.703 / 1.000.  Since
+# deepseek-v2-lite's prefill and decodes 1.199 / 0.703 / 1.000 (0.668
+# / 0.593 / 0.886 since each rank makes its MLA mask from the
+# positions: `test_deepseek_prefill_on_a_split_slot_cache`).  Since
 # the experts' input is reduced once onto the weights' split and the
 # routing weights' gradient stays split on the experts (models/moe.py),
 # deepseek's train is held too: all-gather 0.997 x XLA's, largest
@@ -513,6 +524,40 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
         assert lo <= gather / ref_gather <= hi
     if "flops" in held:
         assert FLOPS_TO_REF[0] <= flops / ref_flops <= FLOPS_TO_REF[1]
+
+
+def test_deepseek_prefill_on_a_split_slot_cache():
+    """deepseek's smoke() prefill on the mini mesh, its latent cache
+    split on slots (the prefill's rules), traced partitioned: no
+    collective moves a bool tensor (each rank makes its rows' mask from
+    the positions, `models.attention._latent_attention_split`), and no
+    float32 tensor of the routing's (..., T, E, C) shape is live at the
+    peak (`models.moe.route_factors` makes the dispatch and combine in
+    the compute dtype); the step's values are held against the plain
+    step's on two ranks (tests/test_torch_partitioned_values.py)."""
+    arch = "deepseek-v2-lite-16b"
+    shape, kv_chunk = mini_cells(arch)["prefill"]
+    cfg = mini_config(get_config(arch, smoke=True), kv_chunk)
+    spec = ShapeSpec(*shape)
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    with dryrun.sites() as traces:
+        rec = dryrun.lower(cfg, spec, mesh)
+    assert rec["status"] == "OK" and rec["partitioned"]
+    assert rec["trace_mode"] == "full"
+    trace = traces[-1]                    # the whole depth's
+    assert trace["layers"] == cfg.num_layers
+    rules = dryrun._shape_rules(train.make_rules(cfg, mesh), spec, mesh, cfg)
+    assert rules["cache_seq"] == "model"
+    routed = (cfg.moe.num_experts,
+              moe.capacity(min(moe.GROUP_SIZE, spec.global_batch
+                               * spec.seq_len), cfg.moe))
+    moved = {dtype for _, dtype, _, _ in trace["collectives"]}
+    live = [(dtype, shape) for _, dtype, shape in trace["peak_live"]]
+    print(f"{arch} mini prefill: collectives of {sorted(map(str, moved))}; "
+          f"peak {trace['peak']} B at {trace['peak_site']}")
+    assert torch.bool not in moved and torch.bfloat16 in moved
+    assert not any(dtype == torch.float32 and shape[-2:] == routed
+                   for dtype, shape in live)
 
 
 def _held(*trees):

@@ -409,50 +409,50 @@ class TestMLA:
 
     @pytest.mark.parametrize("kv_chunk", [None, 4])
     def test_forward_without_cache(self, kv_chunk):
+        """The port makes its mask from the positions and `window`; the
+        reference is given the same (causal, and within a window)."""
         jp, tp = self._params()
         x = rnd(57, (2, 8, self.D))
         pos = np.broadcast_to(np.arange(8), (2, 8)).copy()
-        mask = np.tril(np.ones((8, 8), bool))[None].repeat(2, 0)
-        (jx, jpos, jm), (tx, tpos, tm) = both(x, pos, mask)
-        ro, _ = jref(r_attn.mla_forward, jx, jp, jpos, mask=jm,
-                     kv_chunk=kv_chunk,
-                     **self._kw())
-        to, tc = t_attn.mla_forward(tx, tp, tpos, mask=tm, kv_chunk=kv_chunk,
-                                    **self._kw())
-        close(to, ro)
-        assert tc == {}
+        (jx, jpos), (tx, tpos) = both(x, pos)
+        for window in (None, 3):
+            ro, _ = jref(r_attn.mla_forward, jx, jp, jpos,
+                         mask=r_attn.make_mask(jpos, jpos, window=window),
+                         kv_chunk=kv_chunk, **self._kw())
+            to, tc = t_attn.mla_forward(tx, tp, tpos, window=window,
+                                        kv_chunk=kv_chunk, **self._kw())
+            close(to, ro)
+            assert tc == {}
 
     def test_cached_prefill_then_per_slot_decode(self):
+        """Against the cache's slots (slot i holds token i), the port's
+        mask as the one the reference is given, causal and within a
+        window."""
         jp, tp = self._params()
         slots = 12
-        rc = {"c_kv": jnp.zeros((2, slots, self.LORA)),
-              "k_rope": jnp.zeros((2, slots, self.ROPE)),
-              "index": jnp.zeros((), jnp.int32)}
-        tc = {"c_kv": torch.zeros(2, slots, self.LORA),
-              "k_rope": torch.zeros(2, slots, self.ROPE), "index": 0}
-        x = rnd(58, (2, 6, self.D))
-        kv_pos = np.broadcast_to(np.arange(slots), (2, slots))
-        pos = np.broadcast_to(np.arange(6), (2, 6)).copy()
-        mask = pos[:, :, None] >= kv_pos[:, None, :]
-        (jx, jpos, jm), (tx, tpos, tm) = both(x, pos, mask)
-        ro, rc = jref(r_attn.mla_forward, jx, jp, jpos, mask=jm, cache=rc,
-                      **self._kw())
-        to, tc = t_attn.mla_forward(tx, tp, tpos, mask=tm, cache=tc,
-                                    **self._kw())
-        close(to, ro)
-        # One token per row at the rows' own positions (6 and 9).
-        x1 = rnd(59, (2, 1, self.D))
-        pos1 = np.array([[6], [9]])
-        mask1 = pos1[:, :, None] >= kv_pos[:, None, :]
-        (jx, jpos, jm), (tx, tpos, tm) = both(x1, pos1, mask1)
-        ro, rc = jref(r_attn.mla_forward, jx, jp, jpos, mask=jm, cache=rc,
-                      **self._kw())
-        to, tc = t_attn.mla_forward(tx, tp, tpos, mask=tm, cache=tc,
-                                    **self._kw())
-        close(to, ro)
-        close(tc["c_kv"], rc["c_kv"])
-        close(tc["k_rope"], rc["k_rope"])
-        assert tc["index"] == int(rc["index"]) == 7
+        kv_pos = jnp.broadcast_to(jnp.arange(slots), (2, slots))
+        for window in (None, 3):
+            rc = {"c_kv": jnp.zeros((2, slots, self.LORA)),
+                  "k_rope": jnp.zeros((2, slots, self.ROPE)),
+                  "index": jnp.zeros((), jnp.int32)}
+            tc = {"c_kv": torch.zeros(2, slots, self.LORA),
+                  "k_rope": torch.zeros(2, slots, self.ROPE), "index": 0}
+            # Six tokens, then one token per row at the rows' own
+            # positions (6 and 9).
+            for x, pos in ((rnd(58, (2, 6, self.D)),
+                            np.broadcast_to(np.arange(6), (2, 6)).copy()),
+                           (rnd(59, (2, 1, self.D)), np.array([[6], [9]]))):
+                (jx, jpos), (tx, tpos) = both(x, pos)
+                ro, rc = jref(r_attn.mla_forward, jx, jp, jpos,
+                              mask=r_attn.make_mask(jpos, kv_pos,
+                                                    window=window),
+                              cache=rc, **self._kw())
+                to, tc = t_attn.mla_forward(tx, tp, tpos, window=window,
+                                            cache=tc, **self._kw())
+                close(to, ro)
+            close(tc["c_kv"], rc["c_kv"])
+            close(tc["k_rope"], rc["k_rope"])
+            assert tc["index"] == int(rc["index"]) == 7
 
 
 # ---------------------------------------------------------------- moe
@@ -519,6 +519,34 @@ class TestMoE:
         close(c, rc)
         close(aux, raux)
 
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("cfg,t", [
+        (MOE, 32),
+        (r_moe.MoEConfig(num_experts=2, top_k=1, expert_d_ff=8,
+                         capacity_factor=0.25), 64),          # drops
+        (r_moe.MoEConfig(num_experts=6, top_k=3, expert_d_ff=8,
+                         normalize_weights=False, routed_scale=2.5), 20),
+    ])
+    def test_routing_factors_in_a_dtype_are_the_float32_routing_cast(
+            self, cfg, t, dtype):
+        """The dispatch and combine made in `dtype` from their factors
+        (`route_factors`, `spread`: what `moe_ffn` does) are bit for bit
+        `route`'s float32 ones cast (one term for each (t, e, c)), over
+        seeded logits in three routing groups; the aux loss is the
+        float32 one."""
+        port = _port_moe(cfg)
+        logits = torch.from_numpy(rnd(64, (3, t, cfg.num_experts), 2.0))
+        d32, c32, aux32 = t_moe.route(logits, port)
+        kept, gated, slots, aux = t_moe.route_factors(logits, port, dtype)
+        d, c = t_moe.spread(kept, slots), t_moe.spread(gated, slots)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert d.dtype == c.dtype == dtype
+        for got, want in ((d, d32), (c, c32)):
+            assert torch.equal(got.view(bits), want.to(dtype).view(bits))
+        assert torch.equal(aux, aux32)
+        if cfg.capacity_factor < 1:
+            assert float(d32.sum()) < 3 * t * cfg.top_k     # overflow
+
     def test_capacity_drops_counted(self):
         cfg = r_moe.MoEConfig(num_experts=2, top_k=1, expert_d_ff=8,
                               capacity_factor=0.25)
@@ -575,6 +603,52 @@ class TestMoE:
             close(to, ro)
             close(taux, raux)
         assert t_moe.GROUP_SIZE == r_moe.GROUP_SIZE == 2048
+
+    @pytest.mark.parametrize("cfg,shape,group", [
+        (MOE, (2, 16, 16), 8),
+        (r_moe.MoEConfig(num_experts=4, top_k=1, expert_d_ff=8,
+                         num_shared=2, shared_d_ff=16), (2, 16, 16), 2048),
+        (r_moe.MoEConfig(num_experts=2, top_k=1, expert_d_ff=8,
+                         capacity_factor=0.25), (2, 32, 16), 2048),
+    ])
+    def test_moe_ffn_in_bf16_is_the_cast_routing_one(self, cfg, shape,
+                                                      group):
+        """`moe_ffn` in bf16, its dispatch and combine made in bf16 from
+        their factors, bit for bit as when they were routed in float32
+        and cast, on plain tensors."""
+        _, tp = self._params(cfg)
+        tp = {k: v.to(torch.bfloat16) for k, v in tp.items()}
+        x = torch.from_numpy(rnd(71, shape)).to(torch.bfloat16)
+        port, act = _port_moe(cfg), t_common.ACTIVATIONS["silu"]
+        got, aux = t_moe.moe_ffn(x, tp, port, act, group_size=group)
+        want, want_aux = _moe_ffn_routed_in_float32(x, tp, port, act, group)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(aux, want_aux)
+
+
+def _moe_ffn_routed_in_float32(x, p, cfg, act, group_size):
+    """`moe_ffn` as it was written with the dispatch and combine routed
+    in float32 and cast to the compute dtype, on plain tensors."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    t = xt.shape[0]
+    gs = min(group_size, t)
+    gs = t if t % gs else gs
+    g = t // gs
+    xg = xt.reshape(g, gs, d)
+    logits = torch.einsum("gtd,de->gte", xg, p["router"])
+    dispatch, combine, aux = t_moe.route(logits, cfg)
+    dispatch, combine = dispatch.to(x.dtype), combine.to(x.dtype)
+    xe = torch.einsum("gtec,gtd->egcd", dispatch, xg)
+    e, _, c, _ = xe.shape
+    ye = t_moe._expert_ffn(xe.reshape(e, g * c, d), p, act).reshape(
+        e, g, c, d)
+    out = torch.einsum("egcd,gtec->gtd", ye, combine).reshape(t, d)
+    if cfg.num_shared:
+        hg = torch.einsum("td,df->tf", xt, p["shared_gate"])
+        hu = torch.einsum("td,df->tf", xt, p["shared_up"])
+        out = out + torch.einsum("tf,fd->td", act(hg) * hu, p["shared_down"])
+    return out.reshape(b, s, d), aux.mean()
 
 
 # ---------------------------------------------------------------- ssm

@@ -12,7 +12,9 @@ tensors in float32 (rtol = atol = 1e-5):
   `kv_chunk` (the slots gathered once, then the chunks in order), each
   with a chunk whose slots are all masked; and MLA's over a latent cache
   whose slots are split, its weights' heads split
-  (`models.attention._latent_attention_split`);
+  (`models.attention._latent_attention_split`), one token a row and a
+  prompt, with and without a window, each rank making its mask from the
+  positions;
 * the loss over vocab-split logits (`launch.train.lm_loss`): its value
   and the gradient of the logits;
 * the MoE FFN (`models.moe.moe_ffn`) over a batch split as the data axis
@@ -37,7 +39,10 @@ tensors in float32 (rtol = atol = 1e-5):
   value and the table's gradient; and a gemma3 layer
   (`models.transformer._layer_forward`) whose row-parallel outputs are
   reduced once before the sandwich norms, under the serving rules and
-  under sequence parallelism.
+  under sequence parallelism;
+* deepseek-v2-lite's smoke() prefill step (`Model.prefill`) under the
+  prefill's rules, its latent cache split on slots: the last logits and
+  the written cache, in float64.
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
@@ -97,24 +102,32 @@ def _latent_cases(rank, mesh):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
 
-    q_nope, q_rope = randn(b, 1, h, nope), randn(b, 1, h, rope)
     c, kr = randn(b, slots, lora), randn(b, slots, rope)
     w = {"w_uk": randn(lora, h, nope), "w_uv": randn(lora, h, vd)}
-    mask = torch.from_numpy(rng.random((b, 1, slots)) < 0.7)
-    mask[:, :, 32:48] = False
-    for kv_chunk in (None, 16):
-        want = attn._latent_attention(q_nope, q_rope, c, kr, w["w_uk"],
-                                      w["w_uv"], mask, nope, rope, kv_chunk)
-        split = [Shard(1)]
-        got = attn._latent_attention_split(
-            *(distribute_tensor(t, mesh, [Shard(2)]) for t in (q_nope,
-                                                               q_rope)),
-            distribute_tensor(c, mesh, split),
-            distribute_tensor(kr, mesh, split),
-            {k: distribute_tensor(t, mesh, [Shard(1)]) for k, t in w.items()},
-            distribute_tensor(mask, mesh, [Shard(2)]), nope, rope, kv_chunk)
-        torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
-                                   atol=TOL)
+    kv_pos = torch.arange(slots)[None].expand(b, slots)
+    # One token a row at its own position (a chunk of 16 slots wholly
+    # masked on both rows), and a prompt of 20 tokens at slots 0-19.
+    for pos, window in ((torch.tensor([[20], [29]]), None),
+                        (torch.arange(20)[None].expand(b, 20), None),
+                        (torch.arange(20)[None].expand(b, 20), 6)):
+        q_nope, q_rope = (randn(b, pos.shape[1], h, n) for n in (nope, rope))
+        mask = attn.make_mask(pos, kv_pos, window=window)
+        for kv_chunk in (None, 16):
+            want = attn._latent_attention(q_nope, q_rope, c, kr, w["w_uk"],
+                                          w["w_uv"], mask, nope, rope,
+                                          kv_chunk)
+            split = [Shard(1)]
+            got = attn._latent_attention_split(
+                *(distribute_tensor(t, mesh, [Shard(2)]) for t in (q_nope,
+                                                                   q_rope)),
+                distribute_tensor(c, mesh, split),
+                distribute_tensor(kr, mesh, split),
+                {k: distribute_tensor(t, mesh, [Shard(1)])
+                 for k, t in w.items()},
+                distribute_tensor(pos, mesh, [Replicate()]), window, nope,
+                rope, kv_chunk)
+            torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                       atol=TOL)
     return "latent"
 
 
@@ -322,6 +335,61 @@ def _layer_cases(rank, mesh):
     return "layer"
 
 
+def _prefill_cases(rank, mesh):
+    """deepseek's smoke() prefill step, its parameters split as the
+    production rules split them over "model" and its latent cache split
+    on slots, as the prefill's rules split it (each rank making its
+    rows' mask from the positions), against the plain step, both in
+    float64: a whole step in float32 is itself 2.6e-5 from float64, the
+    rounding of its three layers, where TOL holds the partitioned
+    program's own difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    model = build(cfg)
+    specs = model.param_specs()
+    params = init_params(torch.Generator().manual_seed(7), specs,
+                         dtype=torch.float64, device="cpu")
+    b, s, slots = 2, 12, 16
+    tokens = torch.from_numpy(
+        np.random.default_rng(8).integers(0, cfg.vocab_size, (b, s)))
+    cache = model.init_cache(b, slots, dtype=torch.float64, device="cpu")
+    rules = dryrun._shape_rules(train.make_rules(cfg, mesh),
+                                ShapeSpec("mini", slots, b, "prefill"), mesh,
+                                cfg)
+
+    def place(tree, shardings):
+        return common.tree_unflatten(tree, [
+            distribute_tensor(t, mesh, sh.placements())
+            if isinstance(t, torch.Tensor) else t
+            for t, sh in zip(common.tree_leaves(tree),
+                             common.tree_leaves(shardings))])
+
+    split_params = place(params, dryrun._param_shardings(specs, rules, mesh))
+    split_cache = place(cache, serve_lib.cache_shardings(cache, mesh, rules))
+    assert common.is_split(split_cache["stack"]["mixer"]["c_kv"], 2)
+    want, want_cache = model.prefill(
+        params, {"tokens": tokens},
+        model.init_cache(b, slots, dtype=torch.float64, device="cpu"))
+    with dryrun.gspmd_choices(), implicit_replication():
+        got, got_cache = model.prefill(
+            split_params, {"tokens": distribute_tensor(tokens, mesh,
+                                                       [Replicate()])},
+            split_cache, rules)
+    torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
+    for entry, want_entry in ((got_cache["prefix"][0], want_cache["prefix"][0]),
+                              (got_cache["stack"], want_cache["stack"])):
+        for key in ("c_kv", "k_rope"):
+            torch.testing.assert_close(entry["mixer"][key].full_tensor(),
+                                       want_entry["mixer"][key], rtol=TOL,
+                                       atol=TOL)
+    assert got_cache["index"] == want_cache["index"] == s
+    return "prefill"
+
+
 def _rank(rank, store_path, out_dir):
     done = []
     try:
@@ -330,7 +398,8 @@ def _rank(rank, store_path, out_dir):
         mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
         done = [_attention_cases(rank, mesh), _latent_cases(rank, mesh),
                 _loss_cases(rank, mesh), _moe_cases(rank, mesh),
-                _contract_cases(rank, mesh), _layer_cases(rank, mesh)]
+                _contract_cases(rank, mesh), _layer_cases(rank, mesh),
+                _prefill_cases(rank, mesh)]
         dist.barrier()
     except Exception:
         done = [traceback.format_exc()]
@@ -356,5 +425,6 @@ def test_partitioned_values_equal_the_plain_path(tmp_path):
                 p.kill()
     for rank in (0, 1):
         said = (tmp_path / f"rank{rank}.txt").read_text()
-        assert said == "attention\nlatent\nloss\nmoe\ncontract\nlayer", \
+        assert said == ("attention\nlatent\nloss\nmoe\ncontract\nlayer\n"
+                        "prefill"), \
             f"rank {rank}:\n{said}"
