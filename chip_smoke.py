@@ -135,10 +135,13 @@ Phases, each fatal on failure:
      encoder frames), qwen2-moe-a2.7b train_4k (its routing groups
      split over the data axis), gemma3-1b long_500k (traced by the
      shortcut over its local and global layers, run whole on the
-     card) and deepseek-v2-lite-16b prefill_32k (the first prefill and
+     card), deepseek-v2-lite-16b prefill_32k (the first prefill and
      the first MLA cell: its latent cache split on slots, each rank
      making its rows' mask from the positions; traced by the shortcut,
-     run whole on the card), the dry run's partitioned trace on
+     run whole on the card), starcoder2-7b train_4k and
+     nemotron-4-15b prefill_32k (GQA attention whose heads the model
+     axis leaves whole or cuts across KV groups: each rank attends its
+     rows of queries over every head), the dry run's partitioned trace on
      the host (meta tensors) against the same partitioned step run for
      real on the card as rank 0 of a one-rank fake process group
      (`dryrun.run_on_rank`: the collectives return allocated, unfilled
@@ -2835,13 +2838,20 @@ PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25),
 # qwen2-moe's train step routes its groups split over the data axis, and
 # gemma3's long_500k decode is traced by the shortcut over its local and
 # global layers (one period of the pattern and two, in the model's
-# order) while the card runs all 26 layers.
+# order) while the card runs all 26 layers.  starcoder2's train step and
+# nemotron's prefill hold GQA attention whose heads the model axis leaves
+# whole (starcoder2, 36 heads over 4 KV heads, under sequence
+# parallelism) or cuts across KV groups (nemotron, 48 over 8, 3 a
+# rank): each rank attends its rows of queries over every head
+# (`models.attention._attention_split_rows`).
 RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("mistral-large-123b", "decode_32k"),
                ("whisper-small", "decode_32k"),
                ("qwen2-moe-a2.7b", "train_4k"),
                ("gemma3-1b", "long_500k"),
-               ("deepseek-v2-lite-16b", "prefill_32k"))
+               ("deepseek-v2-lite-16b", "prefill_32k"),
+               ("starcoder2-7b", "train_4k"),
+               ("nemotron-4-15b", "prefill_32k"))
 # 11e: the cells traced by the shortcut whatever their operation count
 # (gemma3's long_500k would trace whole: the first shortcut over two
 # layer kinds held against the card; deepseek's prefill takes it by its
@@ -2865,14 +2875,18 @@ SHORTCUT_CELLS = (("gemma3-1b", "long_500k"),)
 # tests/test_torch_dryrun_ref.py: each all-gather of the HLO times the
 # trips of the loops around it: the HLO holds the dense layer 0 beside
 # the scanned body of the 26 MoE layers, whose all-gathers run 26 times;
-# each counted once, 1,590,329,344): held a step.
+# each counted once, 1,590,329,344): held a step.  starcoder2's
+# train_4k figure is one layer of one microbatch (its HLO's scanned
+# body, with the update), nemotron's prefill one of its scanned layers.
 REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("gemma3-1b", "decode_32k"): 2_508_893_696,
                   ("mistral-large-123b", "decode_32k"): 2_589_298_688,
                   ("whisper-small", "decode_32k"): 11_434_496,
                   ("qwen2-moe-a2.7b", "train_4k"): 1_061_584_896,
                   ("gemma3-1b", "long_500k"): 4_297_188_864,
-                  ("deepseek-v2-lite-16b", "prefill_32k"): 25_697_746_944}
+                  ("deepseek-v2-lite-16b", "prefill_32k"): 25_697_746_944,
+                  ("starcoder2-7b", "train_4k"): 3_013_558_272,
+                  ("nemotron-4-15b", "prefill_32k"): 642_777_088}
 GATHER_OVER_REF = 1.25
 # 11c: the 16x16 cells whose partitioned trace once failed (the MoE
 # dispatch over split groups, rwkv6's views of split dimensions,
@@ -3145,6 +3159,7 @@ def rank0_on_card(smi):
     from repro_torch.launch.shapes import SHAPES
 
     mesh = make_production_mesh()
+    t_cells = time.perf_counter()
     for arch, shape_name in RANK0_CELLS:
         cfg, shape = get_config(arch), SHAPES[shape_name]
         t0 = time.perf_counter()
@@ -3222,6 +3237,8 @@ def rank0_on_card(smi):
               f"bytes a {unit}; "
               f"host {host_s:.3f} s to trace, {run_s:.3f} s to run on the "
               f"card; card={smi}")
+    print(f"11e: {len(RANK0_CELLS)} cells in "
+          f"{time.perf_counter() - t_cells:.3f} s wall")
 
 
 def quickstart_on_card(smi):

@@ -8,7 +8,10 @@ in float32 with the reference's explicit math (NEG_INF scores, `where`
 masking, online softmax over KV chunks), so a masked slot (kv_pos = -1)
 or a fully masked chunk contributes exactly zero.  A DTensor cache whose
 slots are split (decode on a mesh) runs the program the reference's XLA
-compiles for it, on each rank's local tensors (`_attention_split_slots`).
+compiles for it, on each rank's local tensors (`_attention_split_slots`),
+and so do grouped queries whose heads a mesh axis cuts across KV groups,
+or whose rows sequence parallelism splits: each rank attends its rows
+over every head (`_attention_split_rows`).
 """
 from __future__ import annotations
 
@@ -17,11 +20,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.common import (contiguous_stride, contract,
-                                       is_split, reduce_over, slot_positions,
-                                       write_columns_, write_rows_)
+                                       is_split, project, reduce_over,
+                                       slot_positions, write_columns_,
+                                       write_rows_)
 
 NEG_INF = -2.0e38
 
@@ -155,6 +159,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     computed whole (`_attention_plain`).
     """
     b, sq, h, d = q.shape
+    rows = _row_axes(q, k, q_chunk)
+    if rows:
+        return _attention_split_rows(q, k, v, mask, rows, scale=scale,
+                                     softcap=softcap, kv_chunk=kv_chunk,
+                                     q_chunk=q_chunk)
     if kv_chunk and sq > q_chunk and sq % q_chunk == 0:
         return _attention_q_chunked(q, k, v, mask, scale=scale,
                                     softcap=softcap, kv_chunk=kv_chunk,
@@ -222,6 +231,77 @@ def _attention_online(qg, k, v, mask, scale, softcap, kv_chunk):
     return torch.movedim(o, 3, 1)                        # (B,Sq,G,KH,Dv)
 
 
+def _row_axes(q, k, q_chunk) -> list:
+    """The mesh axes over which `gqa_attention` splits DTensor queries
+    (B, Sq, H, D) on their rows, or [] where it keeps them as they are.
+
+    Grouped queries (G = H / KH of them a KV head, G > 1) are viewed as
+    (B, Sq, G, KH, D), G outer.  A split of H keeps to that view only
+    where each piece is whole groups (G divisible by the axes that split
+    H); otherwise the view would gather H, and each rank would score
+    every head.  Those axes split the rows instead, and so do the axes
+    on which the caller has split the queries' rows already (sequence
+    parallelism); both where they divide Sq and `q_chunk`.  Queries
+    whole on an axis stay whole there (each rank scores every head, as
+    XLA's program does), and decode over a slot-split cache
+    (`_attention_split_slots`) is left as it is."""
+    if not isinstance(q, DTensor) or (isinstance(k, DTensor)
+                                      and is_split(k, 1)):
+        return []
+    mesh = q.device_mesh
+    axes = [m for m, (p, n) in enumerate(zip(q.placements, mesh.shape))
+            if n > 1 and p not in (Shard(0), Replicate())]
+    if q.shape[2] == k.shape[2] or not axes or any(
+            q.placements[m] not in (Shard(1), Shard(2)) for m in axes):
+        return []
+    heads = math.prod(mesh.shape[m] for m in axes
+                      if q.placements[m] == Shard(2))
+    if (q.shape[2] // k.shape[2]) % heads == 0:
+        axes = [m for m in axes if q.placements[m] == Shard(1)]
+    parts = math.prod(mesh.shape[m] for m in axes)
+    if not axes or q.shape[1] % parts or q_chunk % parts:
+        return []
+    return axes
+
+
+def _attention_split_rows(q, k, v, mask, axes, *, scale, softcap, kv_chunk,
+                          q_chunk):
+    """`gqa_attention` over DTensor queries whose rows the mesh axes
+    `axes` split, or are to split (`_row_axes`), on this rank's tensors,
+    as the reference's XLA program splits it: the queries and the mask's
+    query rows are split on their rows over `axes` (an all-to-all from a
+    split of the heads), k and v are whole there (gathered where split,
+    their gradients partial sums) and split as the queries' batch on the
+    other axes, and each rank attends its rows over every head,
+    `q_chunk / n` rows at a time where the whole would take `q_chunk` (n
+    the ranks over `axes`).  The output goes back to the heads' split on
+    the axes that split them (an all-to-all) and keeps its rows split on
+    the others."""
+    mesh = q.device_mesh
+
+    def placed(row):
+        """The placements for the local program: `row` over `axes`, the
+        batch split as the queries' is, whole on the other axes."""
+        return [row if m in axes else
+                Shard(0) if p == Shard(0) else Replicate()
+                for m, p in enumerate(q.placements)]
+
+    qp, kp, mp = placed(Shard(1)), placed(Replicate()), placed(Shard(1))
+    kg = [Partial() if m in axes else p for m, p in enumerate(kp)]
+    q_l = q.redistribute(mesh, qp).to_local()
+    k_l, v_l = (t.redistribute(mesh, kp).to_local(grad_placements=kg)
+                for t in (k, v))
+    mask_l = mask.redistribute(mesh, mp).to_local()
+    n = math.prod(mesh.shape[m] for m in axes)
+    o = gqa_attention(q_l, k_l, v_l, mask_l, scale=scale, softcap=softcap,
+                      kv_chunk=kv_chunk, q_chunk=q_chunk // n)
+    shape = (*q.shape[:3], v.shape[3])
+    o = DTensor.from_local(o.contiguous(), mesh, qp, run_check=False,
+                           shape=shape, stride=contiguous_stride(*shape))
+    return o.redistribute(mesh, [q.placements[m] if m in axes else p
+                                 for m, p in enumerate(qp)])
+
+
 def _attention_split_slots(qg, k, v, mask, scale, softcap, kv_chunk):
     """Attention over DTensors whose cache slots are split over mesh
     axes (decode on a mesh), as the reference's XLA program runs it, on
@@ -270,14 +350,12 @@ def _attention_split_slots(qg, k, v, mask, scale, softcap, kv_chunk):
 
 def qkv_project(x: torch.Tensor, p: Dict
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    return q, k, v
+    return tuple(project("bsd,dhk->bshk", x, p[w])
+                 for w in ("wq", "wk", "wv"))
 
 
 def out_project(o: torch.Tensor, p: Dict) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return project("bshk,hkd->bsd", o, p["wo"])
 
 
 def _rms(x, scale, eps=1e-6):

@@ -14,10 +14,11 @@ or the cache slots are, `batched` makes a mask or state split as its
 operand's batch, `take_rows` looks an embedding up on its split rows,
 `reduce_over` all-reduces a partial result, `contract` runs a batched
 product with its batch and heads kept split, `project` a layer's
-product with a weight split as GSPMD splits it, and `write_rows_` /
-`write_columns_` write a cache on this rank's shard.  The eager
-single-card steps apply no placement: on a plain tensor each does what
-the model wrote, and nothing more.
+product with a weight split as GSPMD splits it, `placed_grads` gives a
+layer's weight gradients their weights' split as they are made, and
+`write_rows_` / `write_columns_` write a cache on this rank's shard.
+The eager single-card steps apply no placement: on a plain tensor each
+does what the model wrote, and nothing more.
 
 A parameter tree is a nested dict/list of tensors with the reference's
 keys; the models are plain functions over it.
@@ -182,20 +183,92 @@ def project(equation: str, x: torch.Tensor, w: torch.Tensor
     as GSPMD splits a layer's product: on a mesh axis that splits a
     dimension of the activations the weight lacks (their batch, on the
     data axes), a weight split there (FSDP's input dimension) is
-    gathered first, and the activations keep their split; on an axis
-    that splits only the weight (a one-token step, whose batch of one no
-    axis splits), the weight keeps its split, and a contracted dimension
-    leaves the product a partial sum, reduced where it is next used, not
-    the weight gathered.  The product then runs as `contract` runs
-    it."""
+    gathered first, and the activations keep their split, unless the
+    product is smaller than the weight (a decode step's few tokens) and
+    another axis of that size holds both whole: the weight's split then
+    moves to that axis (`_SwapSplit`, one permutation of the shards, as
+    XLA's collective-permute), the activations are cut on that
+    dimension there, and the product's partial sum over it is reduced
+    at once (an all-reduce of the few tokens' product, as XLA's).  On an
+    axis that splits only the weight (a one-token step, whose batch of
+    one no axis splits), the weight keeps its split, and a contracted
+    dimension leaves the product a partial sum, reduced where it is next
+    used, not the weight gathered.  The product then runs as `contract`
+    runs it."""
     if isinstance(x, DTensor) and isinstance(w, DTensor):
-        xs, ws = equation.split("->")[0].split(",")
-        w = w.redistribute(w.device_mesh, [
-            Replicate() if n > 1 and p.is_shard() and q.is_shard()
-            and xs[q.dim] not in ws else p
-            for p, q, n in zip(w.placements, x.placements,
-                               w.device_mesh.shape)])
+        ins, out = equation.split("->")
+        xs, ws = ins.split(",")
+        mesh = w.device_mesh
+        # The partial product each rank would reduce, against the
+        # weight it would gather.
+        product = x.to_local().numel() * math.prod(
+            n for c, n in zip(ws, w.shape) if c in out)
+        for c in ws:
+            if c in xs and c not in out:
+                product //= x.to_local().shape[xs.index(c)]
+        places, moved = list(w.placements), []
+        for m, (p, q, n) in enumerate(zip(w.placements, x.placements,
+                                          mesh.shape)):
+            if not (n > 1 and p.is_shard() and q.is_shard()
+                    and xs[q.dim] not in ws):
+                continue
+            idle = [a for a, k in enumerate(mesh.shape)
+                    if k == n and places[a].is_replicate()
+                    and x.placements[a].is_replicate()]
+            if (idle and ws[p.dim] in xs and ws[p.dim] not in out
+                    and product < w.to_local().numel() * n):
+                w = _SwapSplit.apply(w, m, idle[0])
+                places = list(w.placements)
+                moved.append(idle[0])
+            else:
+                places[m] = Replicate()
+        w = w.redistribute(mesh, places)
+        if moved:
+            y = contract(equation, x, w)
+            return y.redistribute(mesh, [Replicate() if a in moved else p
+                                         for a, p in enumerate(y.placements)])
     return contract(equation, x, w)
+
+
+class _SwapSplit(torch.autograd.Function):
+    """A DTensor whose split on mesh axis `a` moves to axis `b`, of the
+    same size, where it is whole: each rank's shard goes to the rank
+    whose coordinates on the two axes are swapped, one permutation over
+    the mesh's ranks.  The gradient goes back the same way."""
+
+    @staticmethod
+    def forward(ctx, t, a, b):
+        ctx.axes, ctx.placements = (a, b), t.placements
+        return _swapped(t, a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.axes
+        moved = list(ctx.placements)
+        moved[a], moved[b] = moved[b], moved[a]
+        grad = grad.redistribute(grad.device_mesh, moved)
+        return _swapped(grad, b, a), None, None
+
+
+def _swapped(t: DTensor, a: int, b: int) -> DTensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = t.device_mesh
+    ranks = mesh.mesh
+    dst = dict(zip(ranks.flatten().tolist(),
+                   ranks.transpose(a, b).flatten().tolist()))
+    local = t.to_local()
+    # `permute_tensor` sends each rank's whole tensor, flattened.
+    moved = funcol.permute_tensor(local.reshape(-1),
+                                  [dst[r] for r in range(len(dst))],
+                                  torch.distributed.group.WORLD)
+    if hasattr(moved, "wait"):
+        moved = moved.wait()
+    moved = moved.view(local.shape)
+    places = list(t.placements)
+    places[a], places[b] = places[b], places[a]
+    return DTensor.from_local(moved, mesh, places, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def token_positions(tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -452,11 +525,42 @@ def tree_index(tree: Pytree, i: int) -> Pytree:
 def tree_unbind(stack: Pytree) -> list:
     """The per-layer trees of a stacked tree, as views: each leaf is
     unbound once, so a backward pass stacks the layers' gradients into
-    the stacked leaf in one step."""
+    the stacked leaf in one step.  Each layer's tree goes through
+    `placed_grads`."""
     leaves = tree_leaves(stack)
     parts = [torch.unbind(t) for t in leaves]
-    return [tree_unflatten(stack, [p[i] for p in parts])
+    return [placed_grads(tree_unflatten(stack, [p[i] for p in parts]))
             for i in range(leaves[0].shape[0])]
+
+
+class _PlacedGrad(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient takes its placements."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and grad.placements != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def placed_grads(tree: Pytree) -> Pytree:
+    """A layer's parameters, as they are.  Where autograd records, each
+    DTensor leaf's gradient takes the leaf's placements as soon as the
+    layer's backward has made it: a partial sum over the batch's axes is
+    reduce-scattered onto the weight's split once a layer, as XLA's
+    scanned backward does, not held whole on every rank until the
+    update.  Plain tensors, and any leaf outside autograd, are returned
+    as they are."""
+    if not torch.is_grad_enabled():
+        return tree
+    return tree_map(lambda t: _PlacedGrad.apply(t)
+                    if isinstance(t, DTensor) and t.requires_grad else t,
+                    tree)
 
 
 # ---------------------------------------------------------------------------

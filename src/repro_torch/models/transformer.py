@@ -44,8 +44,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
-                                       norm_spec, project, remat,
-                                       stack_specs, take_rows,
+                                       norm_spec, placed_grads, project,
+                                       remat, stack_specs, take_rows,
                                        token_positions, tree_index,
                                        tree_unbind, write_columns_,
                                        write_rows_)
@@ -306,7 +306,13 @@ def _gqa_forward(x, p, cfg: ModelConfig, positions, *, window, theta,
         q = attn.apply_rope(q, pos, theta=theta, rot_frac=cfg.rope_frac)
         k = attn.apply_rope(k, pos, theta=theta, rot_frac=cfg.rope_frac)
     if rules is not None:
-        q = logical_constraint(q, rules, "batch", None, "act_heads", None)
+        # Under sequence parallelism, queries whose heads no axis splits
+        # keep the residual stream's split of their rows: each rank
+        # attends its rows over every head (`attn._row_axes`), and the
+        # output stays split as the stream is.
+        rows = ("seq" if rules.get("seq") is not None
+                and rules.get("act_heads") is None else None)
+        q = logical_constraint(q, rules, "batch", rows, "act_heads", None)
         k = logical_constraint(k, rules, "batch", None, "cache_heads", None)
         v = logical_constraint(v, rules, "batch", None, "cache_heads", None)
 
@@ -577,7 +583,7 @@ class TransformerLM:
             one_layer = remat(one_layer, cfg.remat)
             aux_total = 0.0
             for i, lp in enumerate(params["layer_list"]):
-                x, aux = one_layer(x, lp, i)
+                x, aux = one_layer(x, placed_grads(lp), i)
                 aux_total = aux_total + aux
         return self._logits(params, x, rules), aux_total
 
@@ -586,7 +592,7 @@ class TransformerLM:
         aux_total = 0.0
         n_prefix = len(cfg.moe_dense_layers)
         for i, lp in enumerate(params.get("prefix_layers", [])):
-            x, aux, _ = _layer_forward(x, lp, cfg, positions,
+            x, aux, _ = _layer_forward(x, placed_grads(lp), cfg, positions,
                                        cfg.moe_dense_layers[i], rules=rules)
             aux_total = aux_total + aux
 

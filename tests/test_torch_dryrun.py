@@ -318,6 +318,10 @@ GATHER_TO_REF = (0.45, 1.6)
 # counts matrix products (FlopCounterMode's formulas), XLA elementwise
 # work too, which weighs most in a decode step.
 FLOPS_TO_REF = (0.55, 1.0)
+# gemma3's decode 0.531 since its q, k and v products are cut on their
+# weights' input dimension over the model axis, as XLA's are (was 0.617,
+# when each rank computed them whole), in a band of its own.
+FLOPS_TO_REF_OF = {("gemma3-1b", "decode"): (0.48, 0.58)}
 MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
                "alias_bytes", "peak_per_device_gib"}
 # The checks each mini cell is held to against XLA: "largest" (no
@@ -357,9 +361,16 @@ HELD_TO_REF = {
 # backward: gemma3's train 0.422 (was 0.954), gemma3's prefill 0.393
 # (was 0.500), rwkv6's train 0.398 (was 0.914), whisper's train 0.447
 # (was 0.994; its sublayers' outputs, reduced once now before its
-# norms) x XLA's.
+# norms) x XLA's.  gemma3's decode 0.387 (was 0.590): its q, k and v
+# weights, split on their input dimension over the data axis, move that
+# split to the model axis, which holds them whole, as XLA's
+# collective-permutes do (`models.common.project`), where they were
+# gathered; what is left is the weights XLA gathers too, in bf16.
+# gemma3's train 0.365 since each rank attends and projects its rows of
+# queries (was 0.422).
 GATHER_TO_REF_OF = {("gemma3-1b", "train"): (0.35, 0.5),
                     ("gemma3-1b", "prefill"): (0.35, 0.5),
+                    ("gemma3-1b", "decode"): (0.35, 0.5),
                     ("rwkv6-7b", "train"): (0.35, 0.5),
                     ("whisper-small", "train"): (0.35, 0.5)}
 
@@ -483,7 +494,8 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     HELD_TO_REF: no all-gather larger than XLA's largest, the traced
     all-gather bytes within GATHER_TO_REF of XLA's (GATHER_TO_REF_OF
     where a cell has its own), and on the cells with
-    no loop in XLA's program the FLOPs within FLOPS_TO_REF.  Each cell
+    no loop in XLA's program the FLOPs within FLOPS_TO_REF (or
+    FLOPS_TO_REF_OF).  Each cell
     prints the whole comparison."""
     port, ref = mini_records
     (rec, largest), xla = port[arch][cell], ref[arch][cell]
@@ -523,7 +535,8 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
         lo, hi = GATHER_TO_REF_OF.get((arch, cell), GATHER_TO_REF)
         assert lo <= gather / ref_gather <= hi
     if "flops" in held:
-        assert FLOPS_TO_REF[0] <= flops / ref_flops <= FLOPS_TO_REF[1]
+        lo, hi = FLOPS_TO_REF_OF.get((arch, cell), FLOPS_TO_REF)
+        assert lo <= flops / ref_flops <= hi
 
 
 def test_deepseek_prefill_on_a_split_slot_cache():

@@ -51,7 +51,17 @@ scanned body, and loops inside a layer).  deepseek's decode gathers its
 latent cache where XLA moves float32 keys and values by all-to-all: its
 all-gather alone is held in a band measured here, and with its
 all-to-all at most GATHER_BAND's upper end (GATHER_ALONE_BAND).  The
+GQA cells whose heads the model axis cut across KV groups or left whole
+on every rank (mistral-large-123b's and nemotron-4-15b's prefill and
+train steps, starcoder2-7b's and qwen2-vl-7b's train steps), and
+hymba-1.5b's decode, whose FSDP weights the one-token step gathered
+where XLA moves their split to the model axis, are REPAIRED cells too:
+their peaks in bands measured here, their all-gathers at most
+GATHER_BAND's upper end (the prefills on whole steps, STEP_HELD).  The
 mini cells hold what the families move at mini size.
+
+`python tests/test_torch_dryrun_ref.py --all` compares every runnable
+16x16 cell (but ALL_LEFT_OUT) outside this tier (`compare_all`).
 """
 import collections
 import json
@@ -92,7 +102,12 @@ PEAK_BAND = {("gemma3-1b", "decode_32k"): (0.8, 1.0),
 REPAIRED = (("whisper-small", "decode_32k"), ("rwkv6-7b", "long_500k"),
             ("qwen2-moe-a2.7b", "train_4k"),
             ("deepseek-v2-lite-16b", "prefill_32k"),
-            ("deepseek-v2-lite-16b", "decode_32k"))
+            ("deepseek-v2-lite-16b", "decode_32k"),
+            ("mistral-large-123b", "prefill_32k"),
+            ("nemotron-4-15b", "prefill_32k"), ("hymba-1.5b", "decode_32k"),
+            ("starcoder2-7b", "train_4k"), ("qwen2-vl-7b", "train_4k"),
+            ("mistral-large-123b", "train_4k"),
+            ("nemotron-4-15b", "train_4k"))
 # Peak over XLA's, measured first (torch 2.13 on the CPU): whisper 0.319
 # (XLA keeps float32 copies of the cross-attention cache), rwkv6 0.503,
 # qwen2-moe 0.684 (0.641 since the routing's dispatch and combine are
@@ -107,11 +122,29 @@ REPAIRED = (("whisper-small", "decode_32k"), ("rwkv6-7b", "long_500k"),
 # (1.7, 2.15); rwkv6's then 0.899 in (0.8, 1.0), until its one-token
 # step kept its FSDP weights split (`models.common.project`; XLA's peak
 # holds temporaries the port's does not make).
+# GQA attention whose heads the model axis cut across KV groups, or left
+# whole on every rank, scored every head on every rank: peaks of 1.15-3.41
+# x XLA's (mistral-large-123b prefill 1.406, train 2.498; nemotron-4-15b
+# prefill 1.154, train 1.386; starcoder2-7b train 3.410; qwen2-vl-7b
+# train 3.333).  Each rank now attends its rows of queries over every
+# head (`models.attention._attention_split_rows`) and each layer's weight
+# gradients take their weights' split as they are made
+# (`models.common.placed_grads`), measured first: 0.641, 0.843; 0.826,
+# 0.231; 0.606; 0.612; hymba-1.5b's decode 0.271 (0.360 before its
+# products with weights larger than them moved the weights' split to the
+# model axis, `models.common.project`).
 REPAIRED_PEAK_BAND = {"whisper-small": (0.28, 0.36),
                       "rwkv6-7b": (0.45, 0.56),
                       "qwen2-moe-a2.7b": (0.6, 0.78),
                       ("deepseek-v2-lite-16b", "prefill_32k"): (0.7, 0.85),
-                      ("deepseek-v2-lite-16b", "decode_32k"): (0.35, 0.45)}
+                      ("deepseek-v2-lite-16b", "decode_32k"): (0.35, 0.45),
+                      ("mistral-large-123b", "prefill_32k"): (0.58, 0.71),
+                      ("mistral-large-123b", "train_4k"): (0.76, 0.93),
+                      ("nemotron-4-15b", "prefill_32k"): (0.74, 0.91),
+                      ("nemotron-4-15b", "train_4k"): (0.21, 0.26),
+                      "hymba-1.5b": (0.24, 0.30),
+                      "starcoder2-7b": (0.55, 0.67),
+                      "qwen2-vl-7b": (0.55, 0.68)}
 # The cells whose traced all-gather is held at most GATHER_BAND[1] x
 # XLA's, measured first: whisper 0.106 a layer, qwen2-moe 0.334 a layer
 # of a microbatch, rwkv6 0.141 a layer (were 0.142, 0.337 and 10.83:
@@ -119,14 +152,25 @@ REPAIRED_PEAK_BAND = {"whisper-small": (0.28, 0.36),
 # and unembedding), deepseek-v2-lite's prefill 0.158 a step (was 2.414:
 # each layer gathered its boolean (B, S, Skv) mask over the cache's
 # slots, which each rank now makes from the positions).
+# The GQA cells above were 0.30-0.69 x XLA's (their train steps a
+# step), nemotron-4-15b's prefill 1.84 (its queries' heads gathered for
+# each query chunk, its attention's output reduced, then gathered on
+# d_model) and hymba-1.5b's decode 1.50 (q, k, v and the unembedding
+# gathered over the data axis where XLA permutes them onto the model
+# axis), measured first now: mistral's prefill 0.447 a step, nemotron's
+# 0.088, hymba's decode 0.340.
 GATHER_HELD = ("whisper-small", "qwen2-moe-a2.7b", "rwkv6-7b",
-               "deepseek-v2-lite-16b")
+               "deepseek-v2-lite-16b", "mistral-large-123b",
+               "nemotron-4-15b", "hymba-1.5b", "starcoder2-7b",
+               "qwen2-vl-7b")
 # The archs held on whole steps, against XLA's collectives as its step
 # runs them (`executed_collectives`): deepseek-v2-lite's HLO holds its
 # unscanned dense layer 0 beside the scanned body of its 26 MoE layers,
 # and its attention's loop over 8 key chunks, which all-to-alls each
-# chunk, so no count of layers divides its figure.
-STEP_HELD = ("deepseek-v2-lite-16b",)
+# chunk, so no count of layers divides its figure; the GQA prefills'
+# loop over 8 query chunks inside the scanned layer likewise.
+STEP_HELD = ("deepseek-v2-lite-16b", ("mistral-large-123b", "prefill_32k"),
+             ("nemotron-4-15b", "prefill_32k"))
 # The cells whose all-gather alone is held in a band measured here, and
 # their all-gather and all-to-all together at most GATHER_BAND[1] x
 # XLA's: deepseek-v2-lite's decode gathers its bf16 latent cache over
@@ -191,17 +235,28 @@ REF = textwrap.dedent("""
 """)
 
 
+def _child_json(code, timeout):
+    """The last line a child running `code` prints, as JSON, or what
+    stopped it: "timeout after N s", or the tail of its output."""
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return f"timeout after {timeout} s"
+    if proc.returncode:
+        return proc.stdout[-2000:] + proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def _both(cells):
     """The reference's records of `cells` (compiled in a child with 512
     placeholder devices, each with its compiled HLO under "hlo") and the
     port's, keyed "arch|shape"."""
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    proc = subprocess.run([sys.executable, "-c", REF.format(cells=cells)],
-                          env=env, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
-    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = _child_json(REF.format(cells=cells), 600)
+    assert isinstance(ref, dict), ref
     port = {f"{a}|{s}": dryrun.lower_cell(a, s, False) for a, s in cells}
     return port, ref
 
@@ -276,12 +331,13 @@ def test_repaired_cell_against_xla(arch, shape, repaired_records):
             mem["argument_bytes"] - args_unread + INDEX_BYTES,
             mem["alias_bytes"] - alias_unread + INDEX_BYTES)
     peak, ref_peak = _peak(mem), _peak(x)
-    if arch in STEP_HELD:
+    if arch in STEP_HELD or (arch, shape) in STEP_HELD:
         per, unit, moved = 1, "step", executed_collectives(xla["hlo"])
     else:
         per = (rec.get("n_micro", 1) if spec.kind == "train" else 1) * \
             (cfg.num_layers if cfg.scan_layers else 1)
-        unit = "layer of a microbatch" if spec.kind == "train" else "layer"
+        unit = ("layer of a microbatch" if spec.kind == "train" else
+                "layer" if cfg.scan_layers else "step")
         moved = xla["collectives"]
     traced = {k: v / per for k, v in rec["collectives_traced"].items()}
     gather, want = traced.get("all-gather", 0.0), moved["all-gather"]
@@ -328,20 +384,95 @@ def test_executed_collectives_counts_loop_trips():
     assert executed_collectives(hlo) == {"all-gather": 64 + 3 * 8 * 32,
                                          "all-reduce": 3 * 16}
 
+# `main --all`: the 16x16 cells left out, with the reason.
+ALL_LEFT_OUT = {
+    ("hymba-1.5b", "train_4k"): "the reference's compile did not end in "
+    "600 s; the port traces its 32 layers whole (~46 min)",
+    ("hymba-1.5b", "prefill_32k"): "the reference's compile did not end in "
+    "600 s; the port traces its 32 layers whole (~40 min)"}
+PORT = textwrap.dedent("""
+    import json
+    from repro_torch.launch import dryrun
+    print(json.dumps(dryrun.lower_cell({arch!r}, {shape!r}, False)))
+""")
+
+
+def compare_all(jobs, timeout):
+    """Every runnable 16x16 cell but ALL_LEFT_OUT: the reference's
+    `lower_cell` in a child with `timeout` seconds, then the port's in
+    another, `jobs` cells at a time; prints each cell's peak and
+    all-gather a step (XLA's as its step runs them,
+    `executed_collectives`), port / XLA, a cell above GATHER_BAND[1]
+    on either marked, and returns the rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.shapes import cell_is_runnable
+
+    cells = [(a, s) for a in ARCH_IDS for s in SHAPES
+             if cell_is_runnable(get_config(a), SHAPES[s])[0]
+             and (a, s) not in ALL_LEFT_OUT]
+
+    def one(cell):
+        ref = _child_json(REF.format(cells=[cell]), timeout)
+        port = _child_json(PORT.format(arch=cell[0], shape=cell[1]),
+                           timeout)
+        if isinstance(ref, str) or isinstance(port, str):
+            return cell, "; ".join(
+                f"{who}: {got.strip().splitlines()[-1]}" for who, got in
+                (("reference", ref), ("port", port)) if isinstance(got, str))
+        xla = ref[f"{cell[0]}|{cell[1]}"]
+        moved = executed_collectives(xla["hlo"])
+        peak, ref_peak = _peak(port["memory"]), _peak(xla["memory"])
+        gather = port["collectives_traced"].get("all-gather", 0.0)
+        return cell, (peak, ref_peak, gather, moved.get("all-gather", 0))
+
+    print("| cell (16x16) | peak GiB, port / XLA (x) | all-gather GB a step, "
+          "port / XLA (x) |\n|---|---|---|")
+    rows = []
+    with ThreadPoolExecutor(jobs) as pool:
+        for (arch, shape), got in pool.map(one, cells):
+            rows.append((arch, shape, got))
+            if isinstance(got, str):
+                print(f"| {arch} {shape} | {got} | |", flush=True)
+                continue
+            peak, ref_peak, gather, want = got
+            ratio = gather / want if want else float("inf")
+            above = max(peak / ref_peak, ratio) > GATHER_BAND[1]
+            print(f"| {arch} {shape}{' (above)' if above else ''} | "
+                  f"{peak / 2**30:.3f} / {ref_peak / 2**30:.3f} "
+                  f"({peak / ref_peak:.3f}) | {gather / 1e9:.4g} / "
+                  f"{want / 1e9:.4g} ({ratio:.3f}) |", flush=True)
+    for cell, why in ALL_LEFT_OUT.items():
+        print(f"| {' '.join(cell)} | left out: {why} | |")
+    return rows
+
+
 def main(argv=None):
     """`python tests/test_torch_dryrun_ref.py ARCH SHAPE [N] [PATTERN]`:
     the reference's compiled cell on 16x16 (`lower_cell`'s program):
     its memory, its N largest collectives grouped by kind, result shape
     and op name, and how many HLO instructions have a result matching
-    the regex PATTERN (e.g. 'f32\\[88,'), by opcode."""
+    the regex PATTERN (e.g. 'f32\\[88,').
+    `python tests/test_torch_dryrun_ref.py --all [--jobs J] [--timeout
+    S]`: `compare_all`, the port against the reference on every runnable
+    16x16 cell."""
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("arch")
-    ap.add_argument("shape")
+    ap.add_argument("arch", nargs="?")
+    ap.add_argument("shape", nargs="?")
     ap.add_argument("n", nargs="?", type=int, default=12)
     ap.add_argument("pattern", nargs="?")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--jobs", type=int, default=4)
+    ap.add_argument("--timeout", type=int, default=900)
     args = ap.parse_args(argv)
+    if args.all:
+        compare_all(args.jobs, args.timeout)
+        return
+    if args.shape is None:
+        ap.error("ARCH and SHAPE, or --all")
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
     from repro.launch import dryrun as ref_dryrun
 

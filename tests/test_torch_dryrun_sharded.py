@@ -14,10 +14,16 @@ group that lives only inside the trace.
     test_launch.py's MINI_DRYRUN: heads, vocab, mlp and experts None) on
     (2, 2, 2), the per-device FLOPs times the data degree 4 against the
     1 x 1 trace's at the same global batch: equal exactly where the step
-    splits only its batch (gemma3's training, rwkv6's both); gemma3's
-    decode cache is split over the model axis as well, so its attention
-    is split 8 ways (exact with that term); deepseek keeps its experts
-    and routing whole on every rank under these rules (as the
+    splits only its batch (rwkv6's training); what the model axis
+    splits as well is exact with its term: gemma3's training attends
+    and projects each rank's rows of queries (sequence parallelism), its
+    decode
+    cache is split over the model axis (its attention split 8 ways),
+    and the decode steps' products with weights larger than them (q,
+    k, v, rwkv6's inputs, the unembedding) move the weights' split to
+    the model axis, which holds both whole (`models.common.project`);
+    deepseek keeps its
+    experts and routing whole on every rank under these rules (as the
     reference's GSPMD program does), which the ratio bounds.
 (c) A warm and a cold DTensor propagation cache give identical figures,
     and a partitioned train step traced twice gives the same peak (a
@@ -118,6 +124,22 @@ def _attention_flops(cfg, batch, slots):
     return total
 
 
+def _moved_flops(cfg, batch):
+    """FLOPs of one decode step's products with a weight split on its
+    input dimension over the data axis and larger than the product,
+    whose split `project` moves to the model axis, which holds both
+    whole: GQA's q, k and v, rwkv6's time-mix inputs (the token shift's
+    five rates, r, k, v, g and the decay's first factor) and
+    channel-mix ones (k, r), and the unembedding."""
+    d = cfg.d_model
+    if cfg.mixer == "rwkv6":
+        layer = (5 * cfg.rwkv.ts_rank + 5 * d + cfg.rwkv.decay_rank
+                 + cfg.d_ff)
+    else:
+        layer = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    return 2 * batch * d * (cfg.num_layers * layer + cfg.vocab_size)
+
+
 # Per-device FLOPs x 4 over the 1 x 1 trace's where the step keeps some
 # products whole on more than one rank (deepseek-v2-lite's experts and
 # routing: measured 1.353 train, 1.068 decode): the bound it stays under.
@@ -139,12 +161,26 @@ def test_data_parallel_flops_are_a_quarter_of_the_whole(arch, kind):
     if (arch, kind) in KEPT_WHOLE:
         assert total <= 4 * per_device <= KEPT_WHOLE[arch, kind] * total
         return
-    if (arch, kind) == ("gemma3-1b", "decode"):
-        # The cache's sequence is split over the model axis too
+    if kind == "decode":
+        # The products with weights larger than them are cut on the
+        # weights' input dimension over the model axis; and gemma3's
+        # cache's sequence is split over the model axis too
         # (`_shape_rules`: its heads are not), so each rank scores and
         # sums half the slots of its sequences.
-        attention = _attention_flops(cfg, 8, 64)
-        assert 4 * per_device == total - attention // 2
+        moved = _moved_flops(cfg, 8)
+        attention = (_attention_flops(cfg, 8, 64) if arch == "gemma3-1b"
+                     else 0)
+        assert 4 * per_device == total - attention // 2 - moved // 2
+        return
+    if (arch, kind) == ("gemma3-1b", "train"):
+        # Each rank attends its half of the rows over every head and
+        # projects its rows' output: the score and value products (4 B
+        # H S^2 D a layer) and the output projection (2 B S H D d), and
+        # their backward's two products each (smoke() recomputes
+        # nothing).
+        heads = 8 * 64 * cfg.num_heads * cfg.head_dim
+        split = 3 * heads * (4 * 64 + 2 * cfg.d_model) * cfg.num_layers
+        assert 4 * per_device == total - split // 2
         return
     assert 4 * per_device == total
 

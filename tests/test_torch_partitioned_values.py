@@ -14,7 +14,9 @@ tensors in float32 (rtol = atol = 1e-5):
   whose slots are split, its weights' heads split
   (`models.attention._latent_attention_split`), one token a row and a
   prompt, with and without a window, each rank making its mask from the
-  positions;
+  positions; and GQA attention whose heads the axis cuts across KV
+  groups, or whose rows the caller split (`_attention_split_rows`),
+  prefill chunked over queries and KV, with the gradients of q, k, v;
 * the loss over vocab-split logits (`launch.train.lm_loss`): its value
   and the gradient of the logits;
 * the MoE FFN (`models.moe.moe_ffn`) over a batch split as the data axis
@@ -44,6 +46,10 @@ tensors in float32 (rtol = atol = 1e-5):
   prefill's rules, its latent cache split on slots: the last logits and
   the written cache, in float64.
 
+Four gloo processes form a ("data", "model") mesh of (2, 2) for a
+layer's product whose weight's split moves from "data" to "model"
+(`models.common.project`), against the gathered weight's product.
+
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
 """
@@ -58,6 +64,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.debug import CommDebugMode
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.launch import dryrun, train
@@ -68,6 +75,7 @@ from repro_torch.models.common import contract
 
 TOL = 1e-5
 DEADLINE_S = 120
+c10d = torch.ops.c10d_functional      # as CommDebugMode counts them
 # (B, Sq, H, KH, D, slots): GQA with two query heads a kv head.
 ATTN_SHAPE = (3, 1, 4, 2, 8, 64)
 
@@ -93,6 +101,46 @@ def _attention_cases(rank, mesh):
         got = got.full_tensor()
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     return "attention"
+
+
+def _rows_cases(rank, mesh):
+    """GQA attention whose heads the model axis cuts across KV groups
+    (12 heads over 4 KV heads: 6 a rank, a group and a half): the
+    queries' rows split instead (`models.attention._attention_split_rows`),
+    and queries whose rows the caller split (sequence parallelism), as a
+    causal prefill scored whole, chunked over KV, and chunked over
+    queries and KV: the output and the gradients of q, k and v."""
+    b, s, h, kh, d = 2, 64, 12, 4, 8
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    pos = torch.arange(s)[None].expand(b, s)
+    mask = attn.make_mask(pos, pos)
+    up = torch.from_numpy(rng.standard_normal((b, s, h, d),
+                                              dtype=np.float32))
+    for kv_chunk, q_chunk in ((None, 4096), (16, 4096), (16, 32)):
+        whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = attn.gqa_attention(*whole, mask, kv_chunk=kv_chunk,
+                                  q_chunk=q_chunk)
+        want_grads = torch.autograd.grad((want * up).sum(), whole)
+        for q_place in (Shard(2), Shard(1)):
+            split = [distribute_tensor(t, mesh, [p]).requires_grad_(True)
+                     for t, p in ((q, q_place), (k, Shard(2)),
+                                  (v, Shard(2)))]
+            with dryrun.gspmd_choices():
+                assert attn._row_axes(split[0], split[1], q_chunk) == [0]
+                got = attn.gqa_attention(
+                    *split, distribute_tensor(mask, mesh, [Replicate()]),
+                    kv_chunk=kv_chunk, q_chunk=q_chunk)
+                grads = torch.autograd.grad(
+                    (got * distribute_tensor(up, mesh, [Replicate()])).sum(),
+                    split)
+            torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                       atol=TOL)
+            for g, w in zip(grads, want_grads):
+                torch.testing.assert_close(g.full_tensor(), w, rtol=TOL,
+                                           atol=TOL)
+    return "rows"
 
 
 def _latent_cases(rank, mesh):
@@ -396,7 +444,8 @@ def _rank(rank, store_path, out_dir):
         dist.init_process_group("gloo", rank=rank, world_size=2,
                                 store=dist.FileStore(store_path, 2))
         mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
-        done = [_attention_cases(rank, mesh), _latent_cases(rank, mesh),
+        done = [_attention_cases(rank, mesh), _rows_cases(rank, mesh),
+                _latent_cases(rank, mesh),
                 _loss_cases(rank, mesh), _moe_cases(rank, mesh),
                 _contract_cases(rank, mesh), _layer_cases(rank, mesh),
                 _prefill_cases(rank, mesh)]
@@ -410,21 +459,88 @@ def _rank(rank, store_path, out_dir):
             f.write("\n".join(done))
 
 
-def test_partitioned_values_equal_the_plain_path(tmp_path):
-    ctx = mp.start_processes(_rank, args=(str(tmp_path / "store"),
-                                          str(tmp_path)),
-                             nprocs=2, join=False, start_method="spawn")
+def _spawn(target, nprocs, tmp_path):
+    """`target(rank, store_path, out_dir)` in `nprocs` processes, joined
+    with the deadline; returns what each rank wrote."""
+    ctx = mp.start_processes(target, args=(str(tmp_path / "store"),
+                                           str(tmp_path)),
+                             nprocs=nprocs, join=False, start_method="spawn")
     deadline = time.monotonic() + DEADLINE_S
     try:
         while not ctx.join(timeout=1):
             if time.monotonic() > deadline:
-                pytest.fail(f"two ranks still running after {DEADLINE_S} s")
+                pytest.fail(f"{nprocs} ranks still running after "
+                            f"{DEADLINE_S} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
-    for rank in (0, 1):
-        said = (tmp_path / f"rank{rank}.txt").read_text()
-        assert said == ("attention\nlatent\nloss\nmoe\ncontract\nlayer\n"
-                        "prefill"), \
+    return [(tmp_path / f"rank{rank}.txt").read_text()
+            for rank in range(nprocs)]
+
+
+def test_partitioned_values_equal_the_plain_path(tmp_path):
+    for rank, said in enumerate(_spawn(_rank, 2, tmp_path)):
+        assert said == ("attention\nrows\nlatent\nloss\nmoe\ncontract\n"
+                        "layer\nprefill"), \
             f"rank {rank}:\n{said}"
+
+
+def _moved_rank(rank, store_path, out_dir):
+    """A layer's product with a weight split on its input dimension over
+    "data", which also splits the activations' batch, on a (2, 2) mesh
+    of ("data", "model"), "model" holding both whole: where the product
+    is smaller than the weight (a decode step's tokens), the weight's
+    split moves to "model" (`models.common._SwapSplit`, a permutation of
+    the shards) and the product's partial sum there is all-reduced;
+    where it is larger, the weight is gathered.  Values and gradients
+    against the plain product."""
+    done = []
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=4,
+                                store=dist.FileStore(store_path, 4))
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        rng = np.random.default_rng(10)
+        w = torch.from_numpy(rng.standard_normal((8, 3, 2),
+                                                 dtype=np.float32))
+        for tokens, moved in ((1, True), (16, False)):
+            x = torch.from_numpy(rng.standard_normal((4, tokens, 8),
+                                                     dtype=np.float32))
+            whole = [t.clone().requires_grad_(True) for t in (x, w)]
+            want = torch.einsum("bsd,dhk->bshk", *whole)
+            up = torch.from_numpy(rng.standard_normal(tuple(want.shape),
+                                                      dtype=np.float32))
+            want_grads = torch.autograd.grad((want * up).sum(), whole)
+            split = [distribute_tensor(t, mesh, [Shard(0), Replicate()])
+                     .requires_grad_(True) for t in (x, w)]
+            with dryrun.gspmd_choices(), CommDebugMode() as comm:
+                got = common.project("bsd,dhk->bshk", *split)
+            # Moved: one permutation of the shards (an all-to-all), the
+            # product all-reduced; else the weight gathered.
+            counts = comm.get_comm_counts()
+            assert (counts[c10d.all_to_all_single] == 1) == moved
+            assert (counts[c10d.all_gather_into_tensor] == 0) == moved
+            with dryrun.gspmd_choices():
+                grads = torch.autograd.grad(
+                    (got * distribute_tensor(up, mesh, [Replicate()] * 2))
+                    .sum(), split)
+            torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                       atol=TOL)
+            for g, ww in zip(grads, want_grads):
+                torch.testing.assert_close(g.full_tensor(), ww, rtol=TOL,
+                                           atol=TOL)
+        done = ["moved"]
+        dist.barrier()
+    except Exception:
+        done = [traceback.format_exc()]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+            f.write("\n".join(done))
+
+
+def test_weight_split_moved_to_a_free_axis(tmp_path):
+    for rank, said in enumerate(_spawn(_moved_rank, 4, tmp_path)):
+        assert said == "moved", f"rank {rank}:\n{said}"
