@@ -105,7 +105,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -233,7 +233,7 @@ def one_rank(mesh, device_type: str = "cpu"):
 
 @contextlib.contextmanager
 def gspmd_choices():
-    """Three of DTensor's choices made as GSPMD makes them, for a trace.
+    """Four of DTensor's choices made as GSPMD makes them, for a trace.
 
     An op's sharding: of the strategies DTensor can carry out (finite
     cost), the one that cuts least of what every input holds whole on a
@@ -265,9 +265,14 @@ def gspmd_choices():
     that mesh axis), and `flip` (a cumulative sum's backward), which
     torch 2.11 has no strategy for, has one here (`_flip_strategy`).
 
+    A `scatter` (a sort's backward) keeps the split of a dimension it
+    does not write along (`_scatter_strategy`, torch 2.13's own), so the
+    trace does not depend on the torch: torch 2.11's strategy
+    replicates every operand.
+
     `_select_min_cost_strategy`, the strategies of `view`,
-    `_unsafe_view` and `flip`, and `shard_dim_alltoall` are swapped for
-    the trace and restored after it."""
+    `_unsafe_view`, `flip` and `scatter`, and `shard_dim_alltoall` are
+    swapped for the trace and restored after it."""
     from itertools import chain
 
     from torch.distributed import _functional_collectives as funcol
@@ -281,9 +286,12 @@ def gspmd_choices():
     propagator = DTensor._op_dispatcher.sharding_propagator
     views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
     flip = torch.ops.aten.flip.default
+    aten = torch.ops.aten
+    scatters = (aten.scatter.src, aten.scatter_.src, aten.scatter.value,
+                aten.scatter_.value)
     strict = {op: (propagator.op_strategy_funcs.get(op),
                    propagator.op_to_schema_info.get(op))
-              for op in (*views, flip)}
+              for op in (*views, flip, *scatters)}
 
     def wanted(spec, have):
         return [w.placements for w in
@@ -360,6 +368,9 @@ def gspmd_choices():
             propagator.op_strategy_funcs[op])
     propagator.register_op_strategy(flip, _flip_strategy,
                                     RuntimeSchemaInfo(1))
+    for op in scatters:
+        propagator.register_op_strategy(op, _scatter_strategy,
+                                        RuntimeSchemaInfo(1))
     try:
         yield
     finally:
@@ -426,6 +437,31 @@ def _flip_strategy(op_schema):
                           redistribute_cost=[
                               generate_redistribute_costs(src, want)]))
     return OpStrategy(out)
+
+
+def _scatter_strategy(op_schema):
+    """`scatter`'s strategy (the backward of the routing's sort): a
+    dimension other than the one it writes along may stay split where
+    the input, the index and a tensor source all have its size, each
+    device scattering into its own part; or every operand replicated.
+    torch 2.13's own; torch 2.11 offers only the second, and would
+    gather each routing group's (T, E) index and source."""
+    from torch.distributed.tensor._op_schema import OpStrategy
+    from torch.distributed.tensor._ops.utils import \
+        expand_to_full_mesh_op_strategy
+
+    src, dim, index = op_schema.args_schema[:3]
+    shape = src.shape
+    dim %= len(shape)
+    shapes = [index.shape] + [a.shape for a in op_schema.args_schema[3:4]
+                              if isinstance(a, OpStrategy)]
+    n = 2 + len(shapes)                # output, input, index[, source]
+    options = [[Replicate()] * n] + [
+        [Shard(d)] * n for d in range(len(shape))
+        if d != dim and all(len(s) == len(shape) and s[d] == shape[d]
+                            for s in shapes)]
+    return expand_to_full_mesh_op_strategy(
+        src.mesh, op_schema, options, inplace_op=op_schema.is_inplace_op())
 
 
 def _whole_pieces(reshape: Callable) -> Callable:

@@ -14,9 +14,12 @@ or the cache slots are, `batched` makes a mask or state split as its
 operand's batch, `take_rows` looks an embedding up on its split rows,
 `reduce_over` all-reduces a partial result, `contract` runs a batched
 product with its batch and heads kept split, `project` a layer's
-product with a weight split as GSPMD splits it, `placed_grads` gives a
-layer's weight gradients their weights' split as they are made, and
-`write_rows_` / `write_columns_` write a cache on this rank's shard.
+product with a weight split as GSPMD splits it, `aligned` moves a
+split to the mesh axis of the tensor it is multiplied with,
+`partial_as` makes a whole tensor a partial sum to add to one,
+`placed_grads` gives a layer's weight gradients their weights' split
+as they are made, and `write_rows_` / `write_columns_` write a cache on
+this rank's shard.
 The eager single-card steps apply no placement: on a plain tensor each
 does what the model wrote, and nothing more.
 
@@ -190,11 +193,17 @@ def project(equation: str, x: torch.Tensor, w: torch.Tensor
     XLA's collective-permute), the activations are cut on that
     dimension there, and the product's partial sum over it is reduced
     at once (an all-reduce of the few tokens' product, as XLA's).  On an
-    axis that splits only the weight (a one-token step, whose batch of
-    one no axis splits), the weight keeps its split, and a contracted
-    dimension leaves the product a partial sum, reduced where it is next
-    used, not the weight gathered.  The product then runs as `contract`
-    runs it."""
+    axis that splits only the weight, the weight keeps its split, not
+    gathered (the activations are cut to match where its letter is
+    contracted).  The product then runs as `contract` runs it.  In a
+    one-token step (no axis splits what the product keeps of the
+    activations, as for a batch of one; the product smaller than the
+    weight) each partial sum a contracted dimension leaves is
+    all-reduced at once, a few hundred values, as XLA's program does:
+    the result keeps the split of the weight's other dimensions, and
+    the next product takes it split where its weight splits the same
+    letter.  Left partial, the first elementwise op on it scattered it
+    on the batch of one, and the next product gathered it back."""
     if isinstance(x, DTensor) and isinstance(w, DTensor):
         ins, out = equation.split("->")
         xs, ws = ins.split(",")
@@ -223,11 +232,74 @@ def project(equation: str, x: torch.Tensor, w: torch.Tensor
             else:
                 places[m] = Replicate()
         w = w.redistribute(mesh, places)
-        if moved:
-            y = contract(equation, x, w)
-            return y.redistribute(mesh, [Replicate() if a in moved else p
-                                         for a, p in enumerate(y.placements)])
+        y = contract(equation, x, w)
+        # A one-token step: no axis splits what the product keeps of
+        # the activations, and the product is smaller than the weight.
+        one_token = product < w.to_local().numel() and not any(
+            q.is_shard() and n > 1 and xs[q.dim] in out
+            for q, n in zip(x.placements, mesh.shape))
+        if moved or one_token:
+            return y.redistribute(mesh, [
+                Replicate() if a in moved or (one_token and p.is_partial())
+                else p for a, p in enumerate(y.placements)])
+        return y
     return contract(equation, x, w)
+
+
+def aligned(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`t`, to be combined elementwise with `like` (of `t`'s rank).  On
+    plain tensors it is `t`.  Over DTensors, where `t` splits a dimension
+    on one mesh axis and `like` splits it on another of the same size,
+    each whole where the other splits, `t`'s split moves to `like`'s axis
+    (`_SwapSplit`, one permutation of the shards, as XLA's
+    collective-permute) instead of either being gathered."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    shape = t.device_mesh.shape
+    for a in range(len(shape)):
+        for b in range(len(shape)):
+            p, q = t.placements[a], like.placements[b]
+            if (a != b and shape[a] == shape[b] > 1 and p.is_shard()
+                    and p == q and t.placements[b].is_replicate()
+                    and like.placements[a].is_replicate()):
+                t = _SwapSplit.apply(t, a, b)
+    return t
+
+
+def partial_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`t`, to be added to `like`.  On plain tensors it is `t`.  Over
+    DTensors, on each mesh axis where `like` is a partial sum and `t` is
+    whole, `t` is made a partial sum too (each rank keeps its share,
+    which moves nothing), so that their sum stays a partial sum, reduced
+    once where it is next placed, as GSPMD adds partial sums; not `like`
+    all-reduced for the sum, which torch 2.11's strategy for `add`
+    chooses (torch 2.13's chooses this)."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    axes = [a for a, (p, q) in enumerate(zip(t.placements, like.placements))
+            if p.is_replicate() and q.is_partial() and q.reduce_op == "sum"]
+    return _AsPartial.apply(t, axes) if axes else t
+
+
+class _AsPartial(torch.autograd.Function):
+    """A DTensor whole on the mesh axes `axes` made a partial sum there:
+    each rank keeps its share, the local tensor over the axes' size (a
+    power of two on a production mesh: exact).  The gradient, the
+    output's, takes the input's placements."""
+
+    @staticmethod
+    def forward(ctx, t, axes):
+        ctx.placements = t.placements
+        mesh = t.device_mesh
+        local = t.to_local() / math.prod(mesh.shape[a] for a in axes)
+        return DTensor.from_local(
+            local, mesh, [Partial() if a in axes else p
+                          for a, p in enumerate(t.placements)],
+            run_check=False, shape=t.shape, stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
 
 
 class _SwapSplit(torch.autograd.Function):

@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.common import contract
+from repro_torch.models.common import contract, partial_as
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,5 +207,6 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: MoEConfig, act,
     if cfg.num_shared:
         hg = torch.einsum("td,df->tf", xt, p["shared_gate"])
         hu = torch.einsum("td,df->tf", xt, p["shared_up"])
-        out = out + torch.einsum("tf,fd->td", act(hg) * hu, p["shared_down"])
+        shared = torch.einsum("tf,fd->td", act(hg) * hu, p["shared_down"])
+        out = partial_as(out, shared) + shared
     return out.reshape(b, s, d), aux

@@ -21,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import batched, contract, project, remat
+from repro_torch.models.common import (aligned, batched, contract, project,
+                                       remat)
 
 CHUNK = 16
 LOG_DECAY_MIN = -8.0
@@ -184,7 +185,7 @@ def rwkv6_channel_mix(x: torch.Tensor, p: Dict,
     k = torch.square(F.relu(k))
     kv = project("bsf,fd->bsd", k, p["wv"])
     r = torch.sigmoid(project("bsd,de->bse", xr, p["wr"]))
-    return r * kv, {"shift": x[:, -1]}
+    return aligned(r, kv) * kv, {"shift": x[:, -1]}
 
 
 # ---------------------------------------------------------------------------

@@ -44,10 +44,11 @@ limit chip_smoke.py's phase 11e holds on the card) where the batched
 products keep batch and heads split: whisper's and qwen2-moe's, and
 rwkv6-7b long_500k's, whose one-token step keeps its FSDP weights split
 (`models.common.project`, `take_rows`), and deepseek's prefill, whose
-mask each rank makes for its rows.  deepseek's are held on whole steps
-against XLA's collectives as its step runs them (STEP_HELD,
-`executed_collectives`: its HLO holds an unscanned layer beside the
-scanned body, and loops inside a layer).  deepseek's decode gathers its
+mask each rank makes for its rows.  deepseek's and rwkv6-7b
+long_500k's are held on whole steps against XLA's collectives as its
+step runs them (STEP_HELD, `executed_collectives`: deepseek's HLO holds
+an unscanned layer beside the scanned body, and loops inside a layer;
+rwkv6's gathers its layers' shift states outside its loop).  deepseek's decode gathers its
 latent cache where XLA moves float32 keys and values by all-to-all: its
 all-gather alone is held in a band measured here, and with its
 all-to-all at most GATHER_BAND's upper end (GATHER_ALONE_BAND).  The
@@ -121,7 +122,8 @@ REPAIRED = (("whisper-small", "decode_32k"), ("rwkv6-7b", "long_500k"),
 # gathered the heads) and qwen2-moe's 1.911, in bands (2.4, 3.1) and
 # (1.7, 2.15); rwkv6's then 0.899 in (0.8, 1.0), until its one-token
 # step kept its FSDP weights split (`models.common.project`; XLA's peak
-# holds temporaries the port's does not make).
+# holds temporaries the port's does not make); still 0.503 once its
+# products' partial sums were all-reduced at once.
 # GQA attention whose heads the model axis cut across KV groups, or left
 # whole on every rank, scored every head on every rank: peaks of 1.15-3.41
 # x XLA's (mistral-large-123b prefill 1.406, train 2.498; nemotron-4-15b
@@ -149,7 +151,11 @@ REPAIRED_PEAK_BAND = {"whisper-small": (0.28, 0.36),
 # XLA's, measured first: whisper 0.106 a layer, qwen2-moe 0.334 a layer
 # of a microbatch, rwkv6 0.141 a layer (were 0.142, 0.337 and 10.83:
 # rwkv6's batch of one gathered each layer's FSDP weights, its embedding
-# and unembedding), deepseek-v2-lite's prefill 0.158 a step (was 2.414:
+# and unembedding; its 0.141 a layer against XLA's HLO counted once was
+# 2.371 x XLA's step as it runs, 3,768,320 B, its products' partial sums
+# scattered on the batch of one by the next elementwise op and gathered
+# back; all-reduced at once since, `models.common.project`: 0.335 a
+# step, 532,480 B), deepseek-v2-lite's prefill 0.158 a step (was 2.414:
 # each layer gathered its boolean (B, S, Skv) mask over the cache's
 # slots, which each rank now makes from the positions).
 # The GQA cells above were 0.30-0.69 x XLA's (their train steps a
@@ -168,9 +174,11 @@ GATHER_HELD = ("whisper-small", "qwen2-moe-a2.7b", "rwkv6-7b",
 # unscanned dense layer 0 beside the scanned body of its 26 MoE layers,
 # and its attention's loop over 8 key chunks, which all-to-alls each
 # chunk, so no count of layers divides its figure; the GQA prefills'
-# loop over 8 query chunks inside the scanned layer likewise.
+# loop over 8 query chunks inside the scanned layer likewise; and
+# rwkv6-7b's one-token step, whose HLO gathers the 32 layers' shift
+# states outside its loop (1 MB of XLA's 1,589,248 B a step).
 STEP_HELD = ("deepseek-v2-lite-16b", ("mistral-large-123b", "prefill_32k"),
-             ("nemotron-4-15b", "prefill_32k"))
+             ("nemotron-4-15b", "prefill_32k"), ("rwkv6-7b", "long_500k"))
 # The cells whose all-gather alone is held in a band measured here, and
 # their all-gather and all-to-all together at most GATHER_BAND[1] x
 # XLA's: deepseek-v2-lite's decode gathers its bf16 latent cache over

@@ -32,10 +32,11 @@ tensors in float32 (rtol = atol = 1e-5):
   (`models.common.contract`) with its operands split on the same
   letter, on different letters (the smaller moved by all-to-all) and on
   a contracted letter (a partial sum): the values and the operands'
-  gradients;
+  gradients; and a whole tensor added to a partial sum, made one
+  (`models.common.partial_as`), its value and gradients;
 * a layer's products with a weight split on its input dimension
   (`models.common.project`): one token beside it (the weight kept
-  split, the product a partial sum) and a batch split on the same axis
+  split, the product all-reduced) and a batch split on the same axis
   (the weight gathered), values and gradients; an embedding lookup on a
   table that keeps its split columns (`models.common.take_rows`), its
   value and the table's gradient; and a gemma3 layer
@@ -48,7 +49,9 @@ tensors in float32 (rtol = atol = 1e-5):
 
 Four gloo processes form a ("data", "model") mesh of (2, 2) for a
 layer's product whose weight's split moves from "data" to "model"
-(`models.common.project`), against the gathered weight's product.
+(`models.common.project`), against the gathered weight's product; and
+for rwkv6's one-token step under the long_500k rules (`models.ssm`),
+its products' partial sums all-reduced and nothing gathered.
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
@@ -63,7 +66,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -307,6 +311,28 @@ def _contract_cases(rank, mesh):
             for g, w in zip(grads, want_grads):
                 torch.testing.assert_close(g.full_tensor(), w, rtol=TOL,
                                            atol=TOL)
+        # A whole tensor added to a partial sum is made a partial sum
+        # (`models.common.partial_as`): the sum stays one, not reduced.
+        a, shares = randn(4, 8), randn(2, 4, 8)
+        whole = [a.clone().requires_grad_(True),
+                 shares.clone().requires_grad_(True)]
+        want = whole[0] + whole[1].sum(0)
+        up = randn(4, 8)
+        want_grads = torch.autograd.grad((want * up).sum(), whole)
+        da = distribute_tensor(a, mesh, [Replicate()]).requires_grad_(True)
+        share = shares[rank].clone().requires_grad_(True)
+        part = DTensor.from_local(share, mesh, [Partial()])
+        got = common.partial_as(da, part) + part
+        assert got.placements == (Partial(),)
+        grad_a, grad_share = torch.autograd.grad(
+            (got * distribute_tensor(up, mesh, [Replicate()])).sum(),
+            [da, share])
+        torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                   atol=TOL)
+        torch.testing.assert_close(grad_a.full_tensor(), want_grads[0],
+                                   rtol=TOL, atol=TOL)
+        torch.testing.assert_close(grad_share, want_grads[1][rank],
+                                   rtol=TOL, atol=TOL)
     return "contract"
 
 
@@ -330,7 +356,9 @@ def _layer_cases(rank, mesh):
         with dryrun.gspmd_choices():
             got = common.project("bsd,dhk->bshk", *split)
             if x_place.is_replicate():
-                assert got.placements[0].is_partial()   # the weight kept
+                # The weight kept split, the one token's partial product
+                # all-reduced at once.
+                assert got.placements[0].is_replicate()
             grads = torch.autograd.grad(
                 (got * distribute_tensor(up, mesh, [Replicate()])).sum(),
                 split)
@@ -438,17 +466,18 @@ def _prefill_cases(rank, mesh):
     return "prefill"
 
 
-def _rank(rank, store_path, out_dir):
+def _on_mesh(rank, store_path, out_dir, shape, names, cases):
+    """`cases`, each called with (rank, mesh) in turn, as rank `rank` of
+    gloo processes forming a CPU mesh of `shape` and axis `names`; writes
+    what each returned, or the traceback that stopped them, for the
+    test."""
+    world = int(np.prod(shape))
     done = []
     try:
-        dist.init_process_group("gloo", rank=rank, world_size=2,
-                                store=dist.FileStore(store_path, 2))
-        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
-        done = [_attention_cases(rank, mesh), _rows_cases(rank, mesh),
-                _latent_cases(rank, mesh),
-                _loss_cases(rank, mesh), _moe_cases(rank, mesh),
-                _contract_cases(rank, mesh), _layer_cases(rank, mesh),
-                _prefill_cases(rank, mesh)]
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store_path, world))
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        done = [case(rank, mesh) for case in cases]
         dist.barrier()
     except Exception:
         done = [traceback.format_exc()]
@@ -457,6 +486,12 @@ def _rank(rank, store_path, out_dir):
             dist.destroy_process_group()
         with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
             f.write("\n".join(done))
+
+
+def _rank(rank, store_path, out_dir):
+    _on_mesh(rank, store_path, out_dir, (2,), ("model",),
+             [_attention_cases, _rows_cases, _latent_cases, _loss_cases,
+              _moe_cases, _contract_cases, _layer_cases, _prefill_cases])
 
 
 def _spawn(target, nprocs, tmp_path):
@@ -486,7 +521,7 @@ def test_partitioned_values_equal_the_plain_path(tmp_path):
             f"rank {rank}:\n{said}"
 
 
-def _moved_rank(rank, store_path, out_dir):
+def _moved_cases(rank, mesh):
     """A layer's product with a weight split on its input dimension over
     "data", which also splits the activations' batch, on a (2, 2) mesh
     of ("data", "model"), "model" holding both whole: where the product
@@ -495,52 +530,146 @@ def _moved_rank(rank, store_path, out_dir):
     the shards) and the product's partial sum there is all-reduced;
     where it is larger, the weight is gathered.  Values and gradients
     against the plain product."""
-    done = []
-    try:
-        dist.init_process_group("gloo", rank=rank, world_size=4,
-                                store=dist.FileStore(store_path, 4))
-        mesh = init_device_mesh("cpu", (2, 2),
-                                mesh_dim_names=("data", "model"))
-        rng = np.random.default_rng(10)
-        w = torch.from_numpy(rng.standard_normal((8, 3, 2),
+    rng = np.random.default_rng(10)
+    w = torch.from_numpy(rng.standard_normal((8, 3, 2),
+                                             dtype=np.float32))
+    for tokens, moved in ((1, True), (16, False)):
+        x = torch.from_numpy(rng.standard_normal((4, tokens, 8),
                                                  dtype=np.float32))
-        for tokens, moved in ((1, True), (16, False)):
-            x = torch.from_numpy(rng.standard_normal((4, tokens, 8),
-                                                     dtype=np.float32))
-            whole = [t.clone().requires_grad_(True) for t in (x, w)]
-            want = torch.einsum("bsd,dhk->bshk", *whole)
-            up = torch.from_numpy(rng.standard_normal(tuple(want.shape),
-                                                      dtype=np.float32))
-            want_grads = torch.autograd.grad((want * up).sum(), whole)
-            split = [distribute_tensor(t, mesh, [Shard(0), Replicate()])
-                     .requires_grad_(True) for t in (x, w)]
-            with dryrun.gspmd_choices(), CommDebugMode() as comm:
-                got = common.project("bsd,dhk->bshk", *split)
-            # Moved: one permutation of the shards (an all-to-all), the
-            # product all-reduced; else the weight gathered.
-            counts = comm.get_comm_counts()
-            assert (counts[c10d.all_to_all_single] == 1) == moved
-            assert (counts[c10d.all_gather_into_tensor] == 0) == moved
-            with dryrun.gspmd_choices():
-                grads = torch.autograd.grad(
-                    (got * distribute_tensor(up, mesh, [Replicate()] * 2))
-                    .sum(), split)
-            torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+        whole = [t.clone().requires_grad_(True) for t in (x, w)]
+        want = torch.einsum("bsd,dhk->bshk", *whole)
+        up = torch.from_numpy(rng.standard_normal(tuple(want.shape),
+                                                  dtype=np.float32))
+        want_grads = torch.autograd.grad((want * up).sum(), whole)
+        split = [distribute_tensor(t, mesh, [Shard(0), Replicate()])
+                 .requires_grad_(True) for t in (x, w)]
+        with dryrun.gspmd_choices(), CommDebugMode() as comm:
+            got = common.project("bsd,dhk->bshk", *split)
+        # Moved: one permutation of the shards (an all-to-all), the
+        # product all-reduced; else the weight gathered.
+        counts = comm.get_comm_counts()
+        assert (counts[c10d.all_to_all_single] == 1) == moved
+        assert (counts[c10d.all_gather_into_tensor] == 0) == moved
+        with dryrun.gspmd_choices():
+            grads = torch.autograd.grad(
+                (got * distribute_tensor(up, mesh, [Replicate()] * 2))
+                .sum(), split)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=TOL,
+                                   atol=TOL)
+        for g, ww in zip(grads, want_grads):
+            torch.testing.assert_close(g.full_tensor(), ww, rtol=TOL,
                                        atol=TOL)
-            for g, ww in zip(grads, want_grads):
-                torch.testing.assert_close(g.full_tensor(), ww, rtol=TOL,
-                                           atol=TOL)
-        done = ["moved"]
-        dist.barrier()
-    except Exception:
-        done = [traceback.format_exc()]
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
-            f.write("\n".join(done))
+    return "moved"
+
+
+def _moved_rank(rank, store_path, out_dir):
+    _on_mesh(rank, store_path, out_dir, (2, 2), ("data", "model"),
+             [_moved_cases])
 
 
 def test_weight_split_moved_to_a_free_axis(tmp_path):
     for rank, said in enumerate(_spawn(_moved_rank, 4, tmp_path)):
         assert said == "moved", f"rank {rank}:\n{said}"
+
+
+def _rwkv_cases(rank, mesh):
+    """rwkv6's smoke() time mix and channel mix (`models.ssm`), one token
+    of a batch of one from a state, under the long_500k rules on a (2, 2)
+    mesh of ("data", "model"): the weights split as `param_sharding`
+    splits them (FSDP's input dimension over "data", heads and the FFN's
+    width over "model"), the state as the decode cache is split, the
+    time mix's output reduced onto the residual stream as the layer's
+    `exit_tp` does.  The outputs, the new WKV state and the input's
+    gradient against the plain path on whole tensors.  Inside
+    `gspmd_choices` the time mix gathers only its output, onto the
+    residual stream, and the channel mix nothing: each product's partial
+    sum is all-reduced at once (`models.common.project`), the channel
+    mix's d_ff-wide product takes its input split as its weight is, and
+    its gate moves its split to the axis of the product it multiplies
+    (`models.common.aligned`, one all-to-all)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.common import param_sharding
+
+    cfg = get_config("rwkv6-7b", smoke=True)
+    rules = dryrun._shape_rules(train.make_rules(cfg, ("data", "model")),
+                                SHAPES["long_500k"], None, cfg)
+    assert rules["batch"] is None
+    d, h = cfg.d_model, cfg.d_model // cfg.rwkv.head_size
+    k = cfg.rwkv.head_size
+    rng = np.random.default_rng(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape, dtype=np.float32))
+
+    specs = {"attn": transformer._rwkv_specs(cfg),
+             "mlp": transformer._rwkv_cmix_specs(cfg)}
+    lp = {part: {name: randn(*sp.shape, scale=0.2)
+                 for name, sp in tree.items()}
+          for part, tree in specs.items()}
+    x = randn(1, 1, d)
+    state = {"shift": randn(1, d), "wkv": randn(1, h, k, k)}
+    cm_shift = randn(1, d)
+    up = randn(1, 1, d)
+
+    def step(x, lp, state, cm_shift, rules=None):
+        with CommDebugMode() as time_comm:
+            mix, new = ssm.rwkv6_time_mix(x, lp["attn"], num_heads=h,
+                                          state=state)
+            if rules is not None:       # the layer's exit_tp
+                mix = common.logical_constraint(
+                    mix, rules, "batch", "seq", "act_embed")
+        with CommDebugMode() as channel_comm:
+            out, _ = ssm.rwkv6_channel_mix(x + mix, lp["mlp"],
+                                           {"shift": cm_shift})
+        return (mix, out, new["wkv"]), (time_comm.get_comm_counts(),
+                                        channel_comm.get_comm_counts())
+
+    whole = x.clone().requires_grad_(True)
+    want, _ = step(whole, lp, state, cm_shift)
+    (want_grad,) = torch.autograd.grad((want[1] * up).sum(), [whole])
+
+    def place(t, spec):
+        return distribute_tensor(t, mesh, placements(mesh, spec))
+
+    shardings = param_sharding(specs, rules)
+    dlp = {part: {name: place(t, shardings[part][name])
+                  for name, t in tree.items()}
+           for part, tree in lp.items()}
+    dstate = {name: place(t, serve._cache_spec(name, t.ndim, rules))
+              for name, t in state.items()}
+    assert dstate["wkv"].placements[1] == Shard(1)   # heads
+    dx = distribute_tensor(x, mesh, [Replicate()] * 2) \
+        .requires_grad_(True)
+    with dryrun.gspmd_choices(), implicit_replication():
+        got, (time_mix, channel_mix) = step(
+            dx, dlp, dstate,
+            distribute_tensor(cm_shift, mesh, [Replicate()] * 2), rules)
+    # The time mix gathers only its output, onto the residual
+    # stream; the channel mix gathers nothing.
+    assert time_mix[c10d.all_gather_into_tensor] == 1, time_mix
+    assert channel_mix[c10d.all_gather_into_tensor] == 0, channel_mix
+    assert channel_mix[c10d.all_to_all_single] == 1, channel_mix
+    with dryrun.gspmd_choices(), implicit_replication():
+        (grad,) = torch.autograd.grad(
+            (got[1] * distribute_tensor(up, mesh, [Replicate()] * 2))
+            .sum(), [dx])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.full_tensor(), w, rtol=TOL,
+                                   atol=TOL)
+    torch.testing.assert_close(grad.full_tensor(), want_grad, rtol=TOL,
+                               atol=TOL)
+    return "rwkv6"
+
+
+def _rwkv_rank(rank, store_path, out_dir):
+    _on_mesh(rank, store_path, out_dir, (2, 2), ("data", "model"),
+             [_rwkv_cases])
+
+
+def test_rwkv6_one_token_step_gathers_no_activations(tmp_path):
+    for rank, said in enumerate(_spawn(_rwkv_rank, 4, tmp_path)):
+        assert said == "rwkv6", f"rank {rank}:\n{said}"
