@@ -141,9 +141,13 @@ Phases, each fatal on failure:
      run whole on the card), starcoder2-7b train_4k and
      nemotron-4-15b prefill_32k (GQA attention whose heads the model
      axis leaves whole or cuts across KV groups: each rank attends its
-     rows of queries over every head) and rwkv6-7b long_500k (a
+     rows of queries over every head), rwkv6-7b long_500k (a
      one-token step: its products' partial sums all-reduced at once,
-     no activation gathered around a projection), the dry run's
+     no activation gathered around a projection) and hymba-1.5b
+     prefill_32k (32 layers, each a Mamba scan of 2048 chunks whose
+     products keep batch and channels split, counted by its trip
+     count on the host and on the card; its host trace in a child
+     started before phase 9, RANK0_TRACED), the dry run's
      partitioned trace on the host (meta tensors) against the same
      partitioned step run for
      real on the card as rank 0 of a one-rank fake process group
@@ -2850,7 +2854,12 @@ PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25),
 # rank): each rank attends its rows of queries over every head
 # (`models.attention._attention_split_rows`).  rwkv6's long_500k is a
 # one-token step whose products' partial sums are all-reduced at once
-# (`models.common.project`), its weights kept split.
+# (`models.common.project`), its weights kept split.  hymba's prefill
+# runs its 32 layers' Mamba scans of 2048 chunks each, counted on the
+# host and on the card alike (`dryrun._Trace.scan`: a few chunks run,
+# the others stand in with the tensors a run chunk leaves), each chunk's
+# products on the rank's own rows and channels (no collective in a
+# chunk), and unembeds only the last position.
 RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("mistral-large-123b", "decode_32k"),
                ("whisper-small", "decode_32k"),
@@ -2859,7 +2868,8 @@ RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("deepseek-v2-lite-16b", "prefill_32k"),
                ("starcoder2-7b", "train_4k"),
                ("nemotron-4-15b", "prefill_32k"),
-               ("rwkv6-7b", "long_500k"))
+               ("rwkv6-7b", "long_500k"),
+               ("hymba-1.5b", "prefill_32k"))
 # 11e: the cells whose all-gather is held a step against XLA's step as
 # it runs (`executed_collectives` in tests/test_torch_dryrun_ref.py),
 # though their layers are scanned: for rwkv6's one-token step XLA's HLO
@@ -2893,7 +2903,8 @@ SHORTCUT_CELLS = (("gemma3-1b", "long_500k"),)
 # train_4k figure is one layer of one microbatch (its HLO's scanned
 # body, with the update), nemotron's prefill one of its scanned layers,
 # rwkv6's long_500k XLA's step as it runs (its 32 layers' shift states,
-# 1 MB, gathered outside the loop).
+# 1 MB, gathered outside the loop), hymba's prefill XLA's step as it runs
+# (its layers unscanned, each Mamba scan a loop of 2048 trips).
 REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("gemma3-1b", "decode_32k"): 2_508_893_696,
                   ("mistral-large-123b", "decode_32k"): 2_589_298_688,
@@ -2903,7 +2914,8 @@ REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("deepseek-v2-lite-16b", "prefill_32k"): 25_697_746_944,
                   ("starcoder2-7b", "train_4k"): 3_013_558_272,
                   ("nemotron-4-15b", "prefill_32k"): 642_777_088,
-                  ("rwkv6-7b", "long_500k"): 1_589_248}
+                  ("rwkv6-7b", "long_500k"): 1_589_248,
+                  ("hymba-1.5b", "prefill_32k"): 77_880_367_360}
 GATHER_OVER_REF = 1.25
 # 11e: traced all-gather bytes a whole step that the card's host must
 # reproduce within HOST_AGREE, as this figure was traced on another
@@ -2913,6 +2925,24 @@ GATHER_OVER_REF = 1.25
 # (`dryrun._scatter_strategy`; torch 2.11's own scatter gathered them,
 # 85,706,145,792 B).
 HOST_ALL_GATHER = {("qwen2-moe-a2.7b", "train_4k"): 67_586_752_512}
+# 11e: the cells whose host trace takes minutes (hymba's 32 layers of
+# attention by query and key chunks), traced in a child on the host's
+# cores from phase 9 on (RANK0_CHILD), beside the card's phases: 11e
+# runs them on the card and holds the child's records.
+RANK0_TRACED = (("hymba-1.5b", "prefill_32k"),)
+RANK0_CHILD = (
+    "import json, time\n"
+    "from repro_torch.configs import get_config\n"
+    "from repro_torch.launch import dryrun\n"
+    "from repro_torch.launch.mesh import make_production_mesh\n"
+    "from repro_torch.launch.shapes import SHAPES\n"
+    "out = {}\n"
+    f"for a, s in {RANK0_TRACED!r}:\n"
+    "    t = time.perf_counter()\n"
+    "    rec = dryrun.lower(get_config(a), SHAPES[s],\n"
+    "                       make_production_mesh())\n"
+    "    out[f'{a}|{s}'] = (rec, time.perf_counter() - t)\n"
+    "print(json.dumps(out))\n")
 HOST_AGREE = 0.01
 # 11c: the 16x16 cells whose partitioned trace once failed (the MoE
 # dispatch over split groups, rwkv6's views of split dimensions,
@@ -3174,9 +3204,13 @@ def _card_peak(make):
     return held, peak
 
 
-def rank0_on_card(smi):
+def rank0_on_card(smi, child=None):
     """Phase 11e: the dry run's partitioned trace of a production cell
-    against the same partitioned step run on the card as rank 0."""
+    against the same partitioned step run on the card as rank 0.
+    `child`, if given, is the process started with RANK0_CHILD, whose
+    records of RANK0_TRACED the cells take (else each is traced here)."""
+    import json
+
     import torch
 
     from repro_torch.configs import get_config
@@ -3186,12 +3220,22 @@ def rank0_on_card(smi):
 
     mesh = make_production_mesh()
     t_cells = time.perf_counter()
+    records = None
     for arch, shape_name in RANK0_CELLS:
         cfg, shape = get_config(arch), SHAPES[shape_name]
         t0 = time.perf_counter()
-        rec = dryrun.lower(cfg, shape, mesh, shortcut=(
-            True if (arch, shape_name) in SHORTCUT_CELLS else None))
-        host_s = time.perf_counter() - t0
+        if child is not None and (arch, shape_name) in RANK0_TRACED:
+            if records is None:
+                out, wall = _finish(child, "11e's traces of "
+                                    f"{RANK0_TRACED}")
+                records = json.loads(out.strip().splitlines()[-1])
+                print(f"11e the child's traces of {RANK0_TRACED} ended "
+                      f"{wall:.3f} s after it started (phase 9)")
+            rec, host_s = records[f"{arch}|{shape_name}"]
+        else:
+            rec = dryrun.lower(cfg, shape, mesh, shortcut=(
+                True if (arch, shape_name) in SHORTCUT_CELLS else None))
+            host_s = time.perf_counter() - t0
         if rec.get("status") != "OK" or not rec["partitioned"] or \
                 rec["trace_scope"] != "device":
             fail(f"11e {arch} {shape_name}: the dry run's record is not a "
@@ -3268,7 +3312,9 @@ def rank0_on_card(smi):
               f"{gather / ref:.4f} x the reference's XLA program's "
               f"{ref:.0f} (limit {GATHER_OVER_REF}), "
               f"all-to-all {traced.get('all-to-all', 0.0) / per:.0f} "
-              f"bytes a {unit}; "
+              f"bytes a {unit}; scan trips counted "
+              f"{rec['scan_trips_counted']} (their collectives "
+              f"{rec['scan_collectives']}); "
               f"host {host_s:.3f} s to trace, {run_s:.3f} s to run on the "
               f"card; card={smi}")
     print(f"11e: {len(RANK0_CELLS)} cells in "
@@ -3341,11 +3387,12 @@ def quickstart_on_card(smi):
     return launches
 
 
-def launch_layer(smi, repaired):
+def launch_layer(smi, repaired, rank0=None):
     """Phase 11: the launch layer, the dry run and the analytic report,
     and the quickstart (see the module docstring); `repaired` is the
-    child tracing REPAIRED_CELLS, started before phase 9.  Returns the
-    quickstart's rst_read launches."""
+    child tracing REPAIRED_CELLS, `rank0` the one tracing RANK0_TRACED,
+    both started before phase 9.  Returns the quickstart's rst_read
+    launches."""
     phase("11. launch layer, dry run and quickstart")
     t_phase = time.perf_counter()
     print(f"card: {smi}")
@@ -3360,7 +3407,7 @@ def launch_layer(smi, repaired):
 
     serve_steps(smi)
     dryrun_against_card(smi)
-    rank0_on_card(smi)
+    rank0_on_card(smi, rank0)
 
     for started, what, want in (
             (cells, f"dryrun --arch {LM_ARCH} --mesh both", (8, 0, 0, 0, 8)),
@@ -3429,9 +3476,10 @@ def main() -> None:
     # 11c's trace of the repaired cells runs on the host's cores from
     # here, beside the card's phases 9-11.
     repaired = _start(["-c", REPAIRED_CHILD])
+    rank0 = _start(["-c", RANK0_CHILD])
     lm_serving(smi, peak_gbps)
     lm_training(smi, peak_gbps)
-    quickstart_launches = launch_layer(smi, repaired)
+    quickstart_launches = launch_layer(smi, repaired, rank0)
     for k in kernels:
         if k["name"] == "rst_contend_read":
             k["launches"] += roofline_launches + campaign_launches

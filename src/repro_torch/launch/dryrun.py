@@ -51,14 +51,25 @@ own.  Every record says "trace_scope": "device", and "partitioned"
 which trace ran.  A partitioned op costs several times a plain one's
 host time (DTensor's propagation, cached per op and shape).
 
-Python time per op on meta tensors is high (the SSM scans go chunk by
-chunk, attention by query and key chunks), so where the whole depth
-would dispatch more than SHORTCUT_OPS operations (counted in the trace
-of one period of the layer pattern) a cell takes a shortcut.  The
-model's layers are a head (deepseek's dense layers), periods of its
-pattern (gemma3's five local layers and a global one; one layer where
-all are alike; one encoder and one decoder layer) and a remainder
-(`layer_period`); the shortcut traces the model cut to a few periods,
+Python time per op on meta tensors is high, so a scan over chunks
+(`models.common.scan`, the SSM mixers' counterpart of the reference's
+lax.scan(jax.checkpoint(step))) is counted by its trip count, as XLA
+runs a compiled loop body by its trip count: the trace runs the first
+and last SCAN_RUN trips and each other trip stands in with the tensors
+a run trip leaves, its forward and backward adding a run trip's
+increment to every additive count and reaching the live bytes a run
+trip reaches (`_Trace.scan`; "scan_trips_counted" says how many were
+counted, "scan_collectives" what collectives they added).  Every count
+and the peak equal those of running every trip (the tests hold them on
+a plain and a partitioned trace, in every step kind).  Attention still
+goes by query and key chunks, so where the whole depth would dispatch
+more than SHORTCUT_OPS operations (counted in the trace of one period
+of the layer pattern, the scans' counted trips included) a cell takes
+a shortcut.  The model's layers are a head (deepseek's dense layers),
+periods of its pattern (gemma3's five local layers and a global one;
+one layer where all are alike; one encoder and one decoder layer) and
+a remainder (`layer_period`); the shortcut traces the model cut to a
+few periods,
 each cut in the model's order with its head and remainder
 (`depth_config`): one period and two, or two and three where the first
 period's ops differ from the next ones' and five periods cost less
@@ -73,8 +84,8 @@ whole-depth trace for every arch and step kind, at smoke() size and at
 deeper ones (a MoE serving step keeps a 4-byte scalar a layer longer
 from its third layer on, so its peak may come out up to 4 B a period
 high).  A pattern of fewer than two periods (hymba's global layers 0,
-15 and 31) traces whole.  A record's "trace_mode" says "full" or
-"shortcut".
+15 and 31) traces whole, each layer's scans counted.  A record's
+"trace_mode" says "full" or "shortcut".
 
 `run_on_rank` runs the same partitioned step for real on a card, as
 rank 0 (chip_smoke.py's phase 11e holds the trace's memory to it).
@@ -90,6 +101,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import logging
@@ -121,8 +133,9 @@ from repro_torch.launch.mesh import (MeshSharding, axis_sizes, data_axes,
                                      dp_degree, make_production_mesh)
 from repro_torch.launch.shapes import (SHAPES, ShapeSpec, batch_shardings,
                                        cell_is_runnable, input_specs)
-from repro_torch.models.common import (param_sharding, param_shapes,
-                                       tree_leaves, tree_map, tree_unflatten)
+from repro_torch.models.common import (counting_scans, param_sharding,
+                                       param_shapes, remat, tree_leaves,
+                                       tree_map, tree_unflatten)
 from repro_torch.models.registry import build
 
 
@@ -271,11 +284,14 @@ def gspmd_choices():
     replicates every operand.
 
     `_select_min_cost_strategy`, the strategies of `view`,
-    `_unsafe_view`, `flip` and `scatter`, and `shard_dim_alltoall` are
-    swapped for the trace and restored after it."""
+    `_unsafe_view`, `flip` and `scatter`, `shard_dim_alltoall` and the
+    derivation of strategies from decompositions (`_DERIVING`, which
+    the trace leaves out) are swapped for the trace and restored after
+    it."""
     from itertools import chain
 
     from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import _decompositions
     from torch.distributed.tensor import _sharding_prop as prop
     from torch.distributed.tensor import placement_types
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
@@ -359,6 +375,28 @@ def gspmd_choices():
             moved = moved.wait()
         return torch.cat(moved.unbind(0), dim=gather_dim)
 
+    # A strategy derived by running an op's decomposition (on a cache
+    # miss; torch 2.11 for softplus and others) runs it on meta tensors
+    # of the global shapes: host work, which a trace leaves out
+    # (`_Trace`), or a cold cache would count what a warm one does not.
+    # The method is an instance's on torch 2.13 and static on 2.11:
+    # wrapped as it is found.
+    decomp = getattr(_decompositions, "DecompShardingStrategy", None)
+    derive = None if decomp is None else \
+        decomp.__dict__.get("propagate_strategy")
+    if derive is not None:
+        kind = type(derive) if isinstance(
+            derive, (staticmethod, classmethod)) else None
+        func = derive.__func__ if kind else derive
+
+        def derived(*args, **kwargs):
+            global _DERIVING
+            _DERIVING += 1
+            try:
+                return func(*args, **kwargs)
+            finally:
+                _DERIVING -= 1
+        decomp.propagate_strategy = kind(derived) if kind else derived
     prop._select_min_cost_strategy = select
     placement_types.shard_dim_alltoall = all_to_all
     for op in views:
@@ -374,6 +412,8 @@ def gspmd_choices():
     try:
         yield
     finally:
+        if derive is not None:
+            decomp.propagate_strategy = derive
         prop._select_min_cost_strategy = chosen
         placement_types.shard_dim_alltoall = moved
         for op, (func, info) in strict.items():
@@ -385,6 +425,10 @@ def gspmd_choices():
                 propagator.op_to_schema_info.pop(op, None)
             else:
                 propagator.op_to_schema_info[op] = info
+
+
+# Set while DTensor derives a strategy from an op's decomposition.
+_DERIVING = 0
 
 
 def _with_placements(spec, placements):
@@ -589,11 +633,16 @@ def sites():
 
 
 def _site() -> str:
+    """The two innermost frames of the port's code, and in a backward
+    pass the autograd node that runs (its frames are the engine's
+    caller's)."""
     here = [f for f in traceback.extract_stack()
             if "repro_torch" in f.filename
             and not f.filename.endswith("dryrun.py")]
-    return " <- ".join(f"{f.filename.rsplit('repro_torch/', 1)[1]}:"
-                       f"{f.lineno}" for f in reversed(here[-2:]))
+    where = " <- ".join(f"{f.filename.rsplit('repro_torch/', 1)[1]}:"
+                        f"{f.lineno}" for f in reversed(here[-2:]))
+    node = torch._C._current_autograd_node()
+    return where if node is None else f"{node.name()} in {where}"
 
 
 class _Trace(TorchDispatchMode):
@@ -614,12 +663,24 @@ class _Trace(TorchDispatchMode):
     collectives among them, which are the device's and are counted.
     An op on no tensor of `device_type` (the meta device, or the
     card's) is host work, such as the propagator's shard arithmetic on
-    small CPU tensors, and is not counted either."""
+    small CPU tensors, and is not counted either; so is an op that
+    DTensor runs, on a cache miss, to derive a strategy from an op's
+    decomposition (`gspmd_choices`), or a cold cache would count what a
+    warm one does not."""
 
     def __init__(self, device_type: str = "meta"):
         super().__init__()
         self.device_type = device_type
         self.live = self.peak = 0
+        # The most live bytes since a scan trip's window began (`_begin`).
+        self.high = 0
+        # While set, ops make and free storages but add no count: the
+        # tensors a counted scan trip stands in with (`scan`).
+        self.muted = False
+        self.counted_trips = 0
+        # The collectives the counted trips added: none where no trip
+        # issues one.
+        self.trip_collectives: Counter = Counter()
         self.ops = self.flops = self.bytes = self.matmuls = 0
         self.collectives: Counter = Counter()
         self.largest: Counter = Counter()     # kind -> largest result
@@ -668,6 +729,7 @@ class _Trace(TorchDispatchMode):
                 self.peak_site = f"{_site()} (largest live {big})"
             self.peak = max(self.peak, self.live)
             self.window = max(self.window, self.live)
+            self.high = max(self.high, self.live)
         elif held is None:
             return                               # an argument's storage
         held[0] += 1
@@ -680,7 +742,7 @@ class _Trace(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = [o for o in tree_flatten(out)[0]
                 if isinstance(o, torch.Tensor)]
-        if any(isinstance(o, FakeTensor) for o in outs):
+        if _DERIVING or any(isinstance(o, FakeTensor) for o in outs):
             return out                           # sharding propagation
         ins = [t for t in tree_flatten((args, kwargs))[0]
                if isinstance(t, torch.Tensor)]
@@ -694,8 +756,22 @@ class _Trace(TorchDispatchMode):
                     held[0] += 1
                     weakref.finalize(o, self._release, held)
             return out
-        self.ops += 1
         self.window = self.live
+        rets = func._schema.returns
+        if not self.muted:
+            self._count(func, name, rets, args, kwargs, out, ins, outs)
+        inputs = {t.untyped_storage()._cdata for t in ins}
+        for i, o in enumerate(outs):
+            aliased = i < len(rets) and rets[i].alias_info is not None
+            self._hold(o, not aliased
+                       and o.untyped_storage()._cdata not in inputs)
+        if self.names is not None:
+            self.names.append(name)
+            self.lives.append(self.window)
+        return out
+
+    def _count(self, func, name, rets, args, kwargs, out, ins, outs):
+        self.ops += 1
         if name in MATMUL_OPS:
             self.matmuls += 1
         kind = COLLECTIVES.get(name.partition("::")[2])
@@ -710,21 +786,238 @@ class _Trace(TorchDispatchMode):
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
-        rets = func._schema.returns
         views = bool(rets) and all(r.alias_info is not None
                                    and not r.alias_info.is_write
                                    for r in rets)
         if not views:
             self.bytes += sum(_nbytes(t) for t in ins + outs)
-        inputs = {t.untyped_storage()._cdata for t in ins}
-        for i, o in enumerate(outs):
-            aliased = i < len(rets) and rets[i].alias_info is not None
-            self._hold(o, not aliased
-                       and o.untyped_storage()._cdata not in inputs)
-        if self.names is not None:
-            self.names.append(name)
-            self.lives.append(self.window)
+
+    # -- scans: the reference's lax.scan(jax.checkpoint(step)) ------------
+
+    @contextlib.contextmanager
+    def _muted(self):
+        kept, self.muted = self.muted, True
+        try:
+            yield
+        finally:
+            self.muted = kept
+
+    def _begin(self) -> tuple:
+        """A trip's window begins: the counts so far, and the most live
+        bytes of the enclosing window, which this one's `high` restarts."""
+        mark = (self.ops, self.flops, self.bytes, self.matmuls,
+                Counter(self.collectives), Counter(self.sites or ()),
+                self.live, self.high)
+        self.high = self.live
+        return mark
+
+    def _end(self, mark: tuple) -> tuple:
+        """The window begun at `mark` ends: its increment, the counts it
+        added, the change of the live bytes and the most live bytes above
+        its start."""
+        ops, flops, nbytes, matmuls, coll, sites, live, high = mark
+        inc = (self.ops - ops, self.flops - flops, self.bytes - nbytes,
+               self.matmuls - matmuls, Counter(self.collectives) - coll,
+               Counter(self.sites or ()) - sites, self.live - live,
+               self.high - live)
+        self.high = max(high, self.high)
+        return inc
+
+    def _stand_in(self, inc: tuple, layouts) -> list:
+        """A trip counted, not run: tensors of `layouts` made, the most
+        live bytes of its window reached (a scratch buffer for what the
+        run trip held meanwhile), and its increment `inc` added."""
+        ops, flops, nbytes, matmuls, coll, sites, _, high = inc
+        start = self.live
+        with self._muted():
+            made = [_made(t) for t in layouts]
+            extra = start + high - self.live
+            if extra > 0:
+                device = next(t[4] for t in layouts if t is not None)
+                torch.empty(extra, dtype=torch.uint8, device=device)
+        self.ops += ops
+        self.flops += flops
+        self.bytes += nbytes
+        self.matmuls += matmuls
+        self.collectives.update(coll)
+        self.trip_collectives.update(coll)
+        if self.sites is not None:
+            self.sites.update(sites)
+        return made
+
+    def scan(self, step: Callable, carry, xs):
+        """`models.common.scan` while the trace runs (`counting_scans`):
+        the trips over dimension 1 of `xs`, of which a scan of more than
+        2 * SCAN_RUN trips runs the first and last SCAN_RUN and counts
+        the others (`_Scan`).  Its trips are alike once the first is
+        run: each dispatches the same ops, on tensors of the same shapes,
+        and leaves the same tensors; the first differs (its carry is
+        the caller's), and in a backward pass the last and the first
+        (no gradient comes to the last carry, none goes to the first).
+        So trips 1 and 2 give a trip's forward increment, the backward
+        of trips n - 2 and n - 3 (between identity marks on their
+        outputs and inputs, `_Mark`) a trip's backward increment, and
+        each trip between is a stand-in (`_StandIn`): under the same
+        checkpoint as a run trip, it makes the tensors a run trip leaves
+        and reaches the same most live bytes, and adds that trip's
+        counts; in a backward pass likewise, the gradients of its
+        inputs.  Every additive count and the peak are then those of
+        running every trip, which the tests hold.  Where the two trips
+        measured in the forward pass differ, every trip is run."""
+        n = xs[0].shape[1]
+        counted = n > 2 * SCAN_RUN
+        trips = _Scan(self)
+        ys = []
+        grad = torch.is_grad_enabled()
+        for i in range(n):
+            if counted and SCAN_RUN <= i < n - SCAN_RUN and trips.alike():
+                # The slices (views) and the checkpoint's own ops (a
+                # recomputation's detaches) are in the run trip's
+                # increment; without autograd no slice is needed.
+                with self._muted():
+                    x_i = [x[:, i] for x in xs] if grad else []
+                    out = trips.stand_in(carry, *x_i)
+            elif counted and 1 <= i < SCAN_RUN:
+                mark = self._begin()
+                out = step(carry, *[x[:, i] for x in xs])
+                trips.forward.append((self._end(mark),
+                                      [_layout(t) for t in out]))
+            elif counted and grad and n - SCAN_RUN <= i < n - 1:
+                out = trips.marked(step, carry, [x[:, i] for x in xs])
+            else:
+                out = step(carry, *[x[:, i] for x in xs])
+            carry, y = out
+            ys.append(y)
+        return carry, torch.stack(ys, dim=1)
+
+
+# A counted scan runs this many trips at each end (`_Trace.scan`); a
+# scan of no more than twice as many runs every trip.
+SCAN_RUN = 3
+
+
+def _layout(t) -> Optional[tuple]:
+    """What `_made` needs to make a tensor laid out as `t` (a DTensor: its
+    local tensor, mesh and placements), read without dispatching an op;
+    None for None."""
+    if t is None:
+        return None
+    local = t._local_tensor if isinstance(t, DTensor) else t
+    return (t.requires_grad, tuple(local.shape), local.stride(), local.dtype,
+            local.device, t._spec if isinstance(t, DTensor) else None)
+
+
+def _made(layout: Optional[tuple]):
+    """An uninitialised tensor of `layout` (`_layout`'s), or None."""
+    if layout is None:
+        return None
+    _, shape, stride, dtype, device, spec = layout
+    local = torch.empty_strided(shape, stride, dtype=dtype, device=device)
+    return local if spec is None else DTensor(local, spec,
+                                              requires_grad=False)
+
+
+class _Scan:
+    """One counted scan's measurements (`_Trace.scan`): each run trip's
+    forward increment with its outputs' layouts, and each marked trip's
+    backward increment with its inputs' gradients' layouts."""
+
+    def __init__(self, trace: _Trace):
+        self.trace = trace
+        self.forward: list = []
+        self.backward: list = []
+        # A stand-in trip, under the checkpoint a run trip takes.
+        self.stand_in = remat(functools.partial(_StandIn.apply, self),
+                              "full")
+
+    def alike(self) -> bool:
+        return len(self.forward) == 2 and \
+            self.forward[0] == self.forward[1]
+
+    def forward_trip(self) -> tuple:
+        self.trace.counted_trips += 1
+        inc, layouts = self.forward[0]
+        return tuple(self.trace._stand_in(inc, layouts))
+
+    def backward_trip(self) -> list:
+        if len(self.backward) != 2 or self.backward[0] != self.backward[1]:
+            raise RuntimeError(
+                "a counted scan's marked trips differ in their backward "
+                "pass: its other trips cannot be counted")
+        inc, layouts = self.backward[0]
+        return self.trace._stand_in(inc, layouts)
+
+    def marked(self, step: Callable, carry, x_i: list):
+        """A trip run with identity marks on its inputs and outputs, whose
+        backward pass is measured between them."""
+        ins = [carry, *x_i]
+        # The marks' callbacks hold no tensor, which would outlive the
+        # trip's.
+        needs = [t.requires_grad for t in ins]
+        window = []
+
+        def begin(grads):
+            window.append(self.trace._begin())
+
+        def end(grads):
+            it = iter(grads)
+            self.backward.append((self.trace._end(window.pop()), [
+                _layout(next(it)) if need else None for need in needs]))
+
+        out = step(*_marked(self.trace, end, ins))
+        return tuple(_marked(self.trace, begin, list(out)))
+
+
+def _marked(trace: _Trace, note: Callable, ts: list) -> list:
+    """`ts`, those that require a gradient through a `_Mark` calling
+    `note` in the backward pass (the mark's views made unseen by the
+    trace's counts)."""
+    at = [i for i, t in enumerate(ts) if t.requires_grad]
+    with trace._muted():
+        got = _Mark.apply(note, *[ts[i] for i in at])
+    out = list(ts)
+    for i, t in zip(at, got):
+        out[i] = t
+    return out
+
+
+class _Mark(torch.autograd.Function):
+    """The identity, whose backward calls `note` with the gradients."""
+
+    @staticmethod
+    def forward(ctx, note, *ts):
+        ctx.note = note
+        ctx.set_materialize_grads(False)
+        return ts
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.note(grads)
+        return (None, *grads)
+
+
+class _StandIn(torch.autograd.Function):
+    """A scan trip counted, not run (`_Scan`): its forward makes its
+    outputs and its backward the gradients of its inputs, each adding a
+    run trip's counts.  It saves its carry, as a run trip's ops save
+    theirs, so that the trip's checkpoint holds its inputs as a run
+    trip's does; the saved carry is never read, so nothing is
+    recomputed."""
+
+    @staticmethod
+    def forward(ctx, trips, carry, *x_i):
+        ctx.trips = trips
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(carry)
+        out = trips.forward_trip()
+        ctx.mark_non_differentiable(*[
+            t for t, layout in zip(out, trips.forward[0][1])
+            if t is not None and not layout[0]])
         return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.trips.backward_trip())
 
 
 # The counts that add up layer by layer.
@@ -759,11 +1052,15 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
     `before_step`, if given, is called with the local tensors of every
     argument once they are made, before the step runs.  With `timeline`
     the result also holds "timeline": each counted op's name and the
-    most live bytes while it ran, in order.
+    most live bytes while it ran, in order.  A scan of more than
+    2 * SCAN_RUN trips runs a few and counts the others (`_Trace.scan`).
 
     Returns the `_ADDITIVE` counts, the peak and the collectives:
     "micro" parts are forward and backward (train) or the serving step,
-    "once" the update; "coll_largest" the largest result of each kind."""
+    "once" the update; "coll_largest" the largest result of each kind;
+    "scan_trips_counted" the scan trips counted, not run, and
+    "scan_collectives" the collectives they added (none where no trip
+    issues one)."""
     model = build(cfg)
     specs = model.param_specs()
     tr = _Trace(torch.device(device).type)
@@ -788,7 +1085,7 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
                 before_step([_local(t) for t in tree_leaves((state, inputs))
                              if isinstance(t, torch.Tensor)])
             inputs = batch
-            with tr:
+            with tr, counting_scans(tr.scan):
                 loss, grads = train_lib.step_grads(model, state.master,
                                                    inputs, rules)
                 micro = (tr.flops, tr.bytes, Counter(tr.collectives))
@@ -812,7 +1109,7 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
                              tree_leaves((params, cache, inputs))
                              if isinstance(t, torch.Tensor)])
             inputs = batch
-            with torch.no_grad(), tr:
+            with torch.no_grad(), tr, counting_scans(tr.scan):
                 if kind == "prefill":
                     step = serve_lib.make_prefill_step(model, rules)
                     logits, cache = step(params, inputs, cache)
@@ -831,7 +1128,9 @@ def trace_step(cfg, kind: str, inputs: Dict[str, torch.Tensor],
            "bytes_micro": micro[1], "bytes_once": tr.bytes - micro[1],
            "coll_micro": micro[2], "coll_once": tr.collectives - micro[2],
            "coll_largest": tr.largest, "ops": tr.ops,
-           "matmuls": tr.matmuls, "peak": tr.peak, "out_bytes": out_bytes}
+           "matmuls": tr.matmuls, "peak": tr.peak, "out_bytes": out_bytes,
+           "scan_trips_counted": tr.counted_trips,
+           "scan_collectives": tr.trip_collectives}
     if timeline:
         out["timeline"] = (tr.names, tr.lives)
     return out
@@ -1005,7 +1304,10 @@ def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
     trace's count.  The result's "trace_mode" says which was done.
     `memo` keeps traces across calls: a plain trace depends on the
     config, the inputs' shapes and the cache length, not on the rules,
-    which are hints; a partitioned one on the mesh and the rules too."""
+    which are hints; a partitioned one on the mesh and the rules too.
+    Each trace counts its scans by their trip count (`_Trace.scan`):
+    the counts and the peak are those of running every trip, and
+    "scan_trips_counted" adds up as the additive counts do."""
     memo = {} if memo is None else memo
 
     def trace(c, timeline=False):
@@ -1045,9 +1347,9 @@ def traced_cost(cfg, kind: str, inputs, cache_len: int, rules=None,
         return {**trace(cfg), "trace_mode": "full"}
     more = count - base
     total = dict(low, trace_mode="shortcut", peak=peak)
-    for key in _ADDITIVE:
+    for key in (*_ADDITIVE, "scan_trips_counted"):
         total[key] += more * (high[key] - low[key])
-    for key in ("coll_micro", "coll_once"):
+    for key in ("coll_micro", "coll_once", "scan_collectives"):
         total[key] = Counter({
             c: low[key][c] + more * (high[key][c] - low[key][c])
             for c in set(low[key]) | set(high[key])})
@@ -1164,6 +1466,8 @@ def lower(cfg, shape: ShapeSpec, mesh, compile_: bool = True,
         remat_dup = 1.0        # nothing is recomputed without a backward
     result["compile_s"] = round(time.time() - t1, 1)
     result["trace_mode"] = cost["trace_mode"]
+    result["scan_trips_counted"] = cost["scan_trips_counted"]
+    result["scan_collectives"] = dict(cost["scan_collectives"])
     result["trace_scope"] = "device"
     result["partitioned"] = partitioned
 

@@ -19,7 +19,9 @@ split to the mesh axis of the tensor it is multiplied with,
 `partial_as` makes a whole tensor a partial sum to add to one,
 `placed_grads` gives a layer's weight gradients their weights' split
 as they are made, and `write_rows_` / `write_columns_` write a cache on
-this rank's shard.
+this rank's shard.  `scan`, the chunk loops of the SSM mixers, hands its
+trips to the dry run's trace while one runs (`counting_scans`), which
+counts most of them by their trip count.
 The eager single-card steps apply no placement: on a plain tensor each
 does what the model wrote, and nothing more.
 
@@ -28,6 +30,7 @@ keys; the models are plain functions over it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -167,7 +170,13 @@ def contract(equation: str, *operands: torch.Tensor) -> torch.Tensor:
         # letter it holds).
         want = [Shard(letters.index(c)) if h else Replicate()
                 for c, h in zip(kept, held)]
-        local.append(t.redistribute(mesh, want).to_local(grad_placements=[
+        # An operand already placed is not redistributed: its gradient,
+        # a partial sum where it lacks a split letter, stays one for its
+        # producer (summed over a scan's trips and reduced once, as
+        # GSPMD's), not reduced back to its whole placement at each use.
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        local.append(t.to_local(grad_placements=[
             p if c is None or h else Partial()
             for c, h, p in zip(kept, held, want)]))
     res = torch.einsum(equation, *local)
@@ -678,6 +687,41 @@ def remat(fn: Callable, policy: str) -> Callable:
             return checkpoint(fn, *args, use_reentrant=False)
         return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
     return wrapped
+
+
+# While the dry run traces a step (`launch.dryrun.trace_step`): the loop
+# that runs a scan's trips and counts the rest, `scan`'s signature.
+_counted_scan: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def counting_scans(loop: Callable):
+    """While active, `scan` hands its trips to `loop(step, carry, xs)`."""
+    global _counted_scan
+    kept, _counted_scan = _counted_scan, loop
+    try:
+        yield
+    finally:
+        _counted_scan = kept
+
+
+def scan(step: Callable, carry: torch.Tensor, xs: Sequence[torch.Tensor]
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `jax.lax.scan(jax.checkpoint(step), carry, xs)`
+    over dimension 1 of `xs` (the chunks of a chunked recurrence):
+    `step(carry, *x_i)` returns (carry, y_i) for the slices `x[:, i]`,
+    each trip under `remat(step, "full")`.  Returns the last carry and
+    the y_i stacked on dimension 1.  A Python loop over the trips; while
+    the dry run traces a step (`counting_scans`), its loop instead, which
+    runs a few trips and counts the others by their increment."""
+    step = remat(step, "full")
+    if _counted_scan is not None:
+        return _counted_scan(step, carry, xs)
+    ys = []
+    for i in range(xs[0].shape[1]):
+        carry, y = step(carry, *(x[:, i] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
 
 
 def _to_tensor(leaf, device: torch.device, dtype) -> torch.Tensor:

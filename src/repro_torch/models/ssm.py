@@ -4,11 +4,14 @@ Each recurrence has two forms, as in the reference: a naive `*_scan`,
 sequential over time, and a *chunked* closed form (log-space decays,
 chunk = 16 tokens) in which the (t, j) pairs of a chunk are matmuls and
 a loop over chunks carries the recurrent state.  The reference's
-jax.lax.scan loops are explicit Python loops here, with the same math in
-the same order.  As in the reference, each chunk of a chunked form runs
-under a checkpoint (`common.remat`, whatever `cfg.remat` says): a
-backward pass recomputes a chunk's pair tensors instead of keeping them
-for every chunk of every layer.
+jax.lax.scan(jax.checkpoint(step)) loops are `common.scan` here, a
+Python loop with the same math in the same order: each chunk runs under
+a checkpoint (`common.remat`, whatever `cfg.remat` says), so a backward
+pass recomputes a chunk's pair tensors instead of keeping them for every
+chunk of every layer; the dry run's trace runs a few chunks and counts
+the others.  The chunks' batched products go through `common.contract`,
+so a partitioned step runs each rank's rows and channels in every chunk
+with no collective.
 
 Numerics: per-channel log decays are clamped at LOG_DECAY_MIN = -8
 (per-token decay 3.4e-4), which bounds every exponent in the chunked
@@ -20,9 +23,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.common import (aligned, batched, contract, project,
-                                       remat)
+                                       scan)
 
 CHUNK = 16
 LOG_DECAY_MIN = -8.0
@@ -95,14 +99,8 @@ def wkv6_chunked(r, k, v, w, u, state0, *, chunk: int = CHUNK):
                  + contract("bjhk,bjhv->bhkv", k_tail, v_i))
         return state, y_inter + y_intra
 
-    step = remat(step, "full")
-    state = state0.float()
-    ys = []
-    for i in range(n):
-        state, y_i = step(state, rc[:, i], kc[:, i], vc[:, i], lwc[:, i])
-        ys.append(y_i)
-    y = torch.stack(ys, dim=1).reshape(b, s, h, dv)
-    return y, state
+    state, ys = scan(step, state0.float(), (rc, kc, vc, lwc))
+    return ys.reshape(b, s, h, dv), state
 
 
 def token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None
@@ -229,35 +227,37 @@ def mamba_chunked(u, dt, A, B, C, D, h0, *, chunk: int = CHUNK):
     def step(h, u_i, dt_i, b_i, c_i):
         dc = torch.cumsum(dt_i, dim=1)                   # (B,C,E) inclusive
         # inter: y_t += C_t . (exp(A * dc_t) * h)
-        decay_t = torch.exp(torch.einsum("bce,en->bcen", dc, Af))
-        y_inter = torch.einsum("bcn,bcen->bce", c_i, decay_t * h[:, None])
+        decay_t = torch.exp(contract("bce,en->bcen", dc, Af))
+        y_inter = contract("bcn,bcen->bce", c_i, decay_t * h[:, None])
         # intra: y_t[e] += sum_{j<=t} dt_j u_j[e] *
         #                  sum_n C_t[n] B_j[n] exp(A[e,n] (dc_t - dc_j)[e])
         # Mask delta *before* exp: j > t gives positive exponents that can
         # overflow even though those pairs are discarded.
         delta = dc[:, :, None, :] - dc[:, None, :, :]    # (B,t,j,E)
         delta = torch.where(tri[None, :, :, None] > 0, delta, 0.0)
-        expf = torch.exp(torch.einsum("btje,en->btjen", delta, Af))
-        cb = torch.einsum("btn,bjn->btjn", c_i, b_i)     # (B,t,j,N)
-        pair = (torch.einsum("btjen,btjn->btje", expf, cb)
-                * tri[None, :, :, None])
+        expf = torch.exp(contract("btje,en->btjen", delta, Af))
+        if isinstance(expf, DTensor):
+            # One product over DTensors: C_t B_j alone would be whole on
+            # every rank, and its gradient, a partial sum over the
+            # channels' split, reduced in every chunk; here the
+            # gradients of B and C stay partial sums over the chunks.
+            pair = contract("btjen,btn,bjn->btje", expf, c_i, b_i)
+        else:
+            cb = contract("btn,bjn->btjn", c_i, b_i)     # (B,t,j,N)
+            pair = contract("btjen,btjn->btje", expf, cb)
+        pair = pair * tri[None, :, :, None]
         du = dt_i * u_i                                  # (B,C,E)
-        y_intra = torch.einsum("btje,bje->bte", pair, du)
+        y_intra = contract("btje,bje->bte", pair, du)
         # state update: exp(A (dc_last - dc_j)) has non-positive exponent.
         dc_last = dc[:, -1]                              # (B,E)
-        tail = torch.exp(torch.einsum(
+        tail = torch.exp(contract(
             "bje,en->bjen", dc_last[:, None] - dc, Af))
-        h = (torch.exp(torch.einsum("be,en->ben", dc_last, Af)) * h
-             + torch.einsum("bjen,bje,bjn->ben", tail, du, b_i))
+        h = (torch.exp(contract("be,en->ben", dc_last, Af)) * h
+             + contract("bjen,bje,bjn->ben", tail, du, b_i))
         return h, y_inter + y_intra + D[None, None] * u_i
 
-    step = remat(step, "full")
-    h = h0.float()
-    ys = []
-    for i in range(nc):
-        h, y_i = step(h, uc[:, i], dtc[:, i], Bc[:, i], Cc[:, i])
-        ys.append(y_i)
-    return torch.stack(ys, dim=1).reshape(b, s, e), h
+    h, ys = scan(step, h0.float(), (uc, dtc, Bc, Cc))
+    return ys.reshape(b, s, e), h
 
 
 def causal_conv1d(x, w, bias, state=None):
@@ -275,17 +275,38 @@ def causal_conv1d(x, w, bias, state=None):
     return out + bias[None, None], new_state
 
 
+def _in_project(x, w):
+    """The two halves of `x`'s product with the input projection `w`
+    (D, 2E): the SSM's input and its gate.  On plain tensors, and for a
+    one-token step, one product, chunked.  Over DTensors of a sequence
+    each half of the weight takes the whole weight's split (its columns
+    over the model axis) and is projected on its own: the product's
+    halves, split there, would be gathered to be chunked (two
+    bfloat16[32, 32768, 200] a layer of a 32k prefill), where the
+    weight's half is a few hundred kilobytes.  A one-token step's
+    product is smaller than the weight, so it keeps the one product."""
+    if not isinstance(w, DTensor) or x.shape[1] == 1:
+        return torch.einsum("bsd,de->bse", x, w).chunk(2, dim=-1)
+    return [project("bsd,de->bse", x,
+                    half.redistribute(w.device_mesh, w.placements))
+            for half in w.chunk(2, dim=-1)]
+
+
 def mamba_mixer(x: torch.Tensor, p: Dict, *, state: Optional[Dict] = None,
                 chunked: bool = True) -> Tuple[torch.Tensor, Dict]:
     """Mamba block. x: (B,S,D) -> (B,S,D)."""
     b, s, _ = x.shape
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = xz.chunk(2, dim=-1)
+    xin, z = _in_project(x, p["in_proj"])
     conv_state = state["conv"] if state is not None else None
     xin, conv_new = causal_conv1d(xin, p["conv_w"], p["conv_b"], conv_state)
     xin = F.silu(xin)
     n_state = p["A_log"].shape[1]
     proj = torch.einsum("bse,ek->bsk", xin, p["x_proj"])
+    if isinstance(proj, DTensor):
+        # The partial sum over the channels' split is reduced once here,
+        # not in every chunk of the scan that reads B and C.
+        proj = proj.redistribute(proj.device_mesh, [
+            Replicate() if q.is_partial() else q for q in proj.placements])
     dt_rank = p["dt_proj"].shape[0]
     dt_lo, Bm, Cm = torch.split(
         proj, [dt_rank, n_state, proj.shape[-1] - dt_rank - n_state], dim=-1)

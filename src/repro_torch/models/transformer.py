@@ -690,9 +690,11 @@ class TransformerLM:
             new_cache["slot_pos"] = cache["slot_pos"] + 1
         return logits[:, -1], new_cache
 
-    def _run_cached(self, params, batch, cache, rules, s):
+    def _run_cached(self, params, batch, cache, rules, s, last=False):
         """The layers over `batch` (`s` tokens a row) with the cache, for
-        decode and prefill alike: returns (logits, new cache)."""
+        decode and prefill alike: returns (logits, new cache).  With
+        `last` and sharding rules, the logits of each row's last position
+        only (`prefill`)."""
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = self._positions(batch)
@@ -729,6 +731,8 @@ class TransformerLM:
             _sync_index(stack, idx + s)
             new_cache = {"prefix": new_prefix, "stack": stack,
                          "index": idx + s}
+        if last and rules is not None:
+            x = x[:, -1:]
         return self._logits(params, x, rules), new_cache
 
     # -- slot management (continuous batching; serving/engine.py) ----------
@@ -765,10 +769,17 @@ class TransformerLM:
 
     # -- prefill -------------------------------------------------------------
     def prefill(self, params, batch, cache, rules=None):
-        """Run the full prompt, writing caches; returns (last_logits, cache)."""
+        """Run the full prompt, writing caches; returns (last_logits, cache).
+        The eager step (no sharding rules) makes every position's logits,
+        as the reference's program makes them, and keeps the last.  A
+        step with sharding rules (the dry run's, partitioned or not, and
+        a card's rank) unembeds only the last position: the (B, S, V)
+        float32 logits and their bf16 product, a prefill's largest
+        tensors, are never made (fewer bytes than XLA's program moves)."""
         src = batch.get("tokens")
         s = (src if src is not None else batch["embeds"]).shape[1]
-        logits, new_cache = self._run_cached(params, batch, cache, rules, s)
+        logits, new_cache = self._run_cached(params, batch, cache, rules, s,
+                                             last=True)
         return logits[:, -1], new_cache
 
 

@@ -452,8 +452,9 @@ def unread_bytes(cfg, shape, mesh):
     compiled serving step of `cfg` at `shape` on `mesh` drops because the
     step never reads them.  A prefill drops a donated cache leaf it
     overwrites whole: a decoder-only GQA model's whole cache (the prompt
-    fills every slot; gemma3's ring is zeroed first), whisper's
-    cross-attention cache (written by `start_cache`).  whisper's decode
+    fills every slot; gemma3's ring is zeroed first), hymba's attention
+    cache (its Mamba state is read), whisper's cross-attention cache
+    (written by `start_cache`).  whisper's decode
     step never reads the encoder's weights or the cross-attention's key
     and value projections (the cache holds their outputs), which jit
     drops from its arguments."""
@@ -470,6 +471,13 @@ def unread_bytes(cfg, shape, mesh):
     if shape.kind == "prefill" and cfg.mixer == "gqa":
         whole = dryrun.local_bytes(cache, c_shard)
         return whole, whole
+    if shape.kind == "prefill" and cfg.mixer == "hymba":
+        # The attention's cache, which the prompt fills (its Mamba state
+        # is read).
+        attn = sum(dryrun.local_bytes(e["mixer"]["attn"],
+                                      sh["mixer"]["attn"])
+                   for e, sh in zip(cache["list"], c_shard["list"]))
+        return attn, attn
     if shape.kind == "decode" and cfg.is_encdec:
         specs = model.param_specs()
         params = param_shapes(specs)

@@ -58,13 +58,17 @@ train steps, starcoder2-7b's and qwen2-vl-7b's train steps), and
 hymba-1.5b's decode, whose FSDP weights the one-token step gathered
 where XLA moves their split to the model axis, are REPAIRED cells too:
 their peaks in bands measured here, their all-gathers at most
-GATHER_BAND's upper end (the prefills on whole steps, STEP_HELD).  The
-mini cells hold what the families move at mini size.
+GATHER_BAND's upper end (the prefills on whole steps, STEP_HELD).
+hymba-1.5b's prefill and train steps are held at 4 layers (HYMBA), in
+a fixture and a reference child of their own, on whole steps, their
+scans counted by trip count with no collective in a trip.  The mini
+cells hold what the families move at mini size.
 
 `python tests/test_torch_dryrun_ref.py --all` compares every runnable
-16x16 cell (but ALL_LEFT_OUT) outside this tier (`compare_all`).
+16x16 cell (ALL_LEFT_OUT is empty) outside this tier (`compare_all`).
 """
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -95,10 +99,12 @@ INDEX_BYTES = 4
 # sandwich norm's partial sum was reduced twice and gathered).
 GATHER_BAND = (0.8, 1.25)
 # Peak over XLA's, measured first: gemma3 decode 0.886, mistral 0.405,
-# gemma3 prefill 0.675.
+# gemma3 prefill 0.675 (band (0.6, 0.75)); since a prefill with sharding
+# rules unembeds only its last position (`TransformerLM.prefill`),
+# gemma3's prefill 0.481.
 PEAK_BAND = {("gemma3-1b", "decode_32k"): (0.8, 1.0),
              ("mistral-large-123b", "decode_32k"): (0.36, 0.45),
-             ("gemma3-1b", "prefill_32k"): (0.6, 0.75)}
+             ("gemma3-1b", "prefill_32k"): (0.43, 0.53)}
 
 REPAIRED = (("whisper-small", "decode_32k"), ("rwkv6-7b", "long_500k"),
             ("qwen2-moe-a2.7b", "train_4k"),
@@ -145,6 +151,8 @@ REPAIRED_PEAK_BAND = {"whisper-small": (0.28, 0.36),
                       ("nemotron-4-15b", "prefill_32k"): (0.74, 0.91),
                       ("nemotron-4-15b", "train_4k"): (0.21, 0.26),
                       "hymba-1.5b": (0.24, 0.30),
+                      ("hymba-1.5b", "prefill_32k"): (0.65, 0.80),
+                      ("hymba-1.5b", "train_4k"): (0.77, 0.94),
                       "starcoder2-7b": (0.55, 0.67),
                       "qwen2-vl-7b": (0.55, 0.68)}
 # The cells whose traced all-gather is held at most GATHER_BAND[1] x
@@ -178,7 +186,8 @@ GATHER_HELD = ("whisper-small", "qwen2-moe-a2.7b", "rwkv6-7b",
 # rwkv6-7b's one-token step, whose HLO gathers the 32 layers' shift
 # states outside its loop (1 MB of XLA's 1,589,248 B a step).
 STEP_HELD = ("deepseek-v2-lite-16b", ("mistral-large-123b", "prefill_32k"),
-             ("nemotron-4-15b", "prefill_32k"), ("rwkv6-7b", "long_500k"))
+             ("nemotron-4-15b", "prefill_32k"), ("rwkv6-7b", "long_500k"),
+             ("hymba-1.5b", "prefill_32k"), ("hymba-1.5b", "train_4k"))
 # The cells whose all-gather alone is held in a band measured here, and
 # their all-gather and all-to-all together at most GATHER_BAND[1] x
 # XLA's: deepseek-v2-lite's decode gathers its bf16 latent cache over
@@ -324,11 +333,19 @@ def test_production_cell_against_xla(arch, shape, records):
 @pytest.mark.parametrize("arch,shape", REPAIRED)
 def test_repaired_cell_against_xla(arch, shape, repaired_records):
     port, ref = repaired_records
-    rec, xla = port[f"{arch}|{shape}"], ref[f"{arch}|{shape}"]
+    _held_against_xla(arch, shape, port[f"{arch}|{shape}"],
+                      ref[f"{arch}|{shape}"], get_config(arch))
+
+
+def _held_against_xla(arch, shape, rec, xla, cfg):
+    """`rec`, the port's record of `cfg` at `shape`, against XLA's
+    `xla`: argument and alias bytes as the two programs hold them, the
+    peak in its band, the all-gather as GATHER_HELD, STEP_HELD and
+    GATHER_ALONE_BAND hold it."""
     assert rec["status"] == xla["status"] == "OK" and rec["partitioned"]
     assert rec["trace_scope"] == "device"
     mem, x = rec["memory"], xla["memory"]
-    cfg, spec = get_config(arch), SHAPES[shape]
+    spec = SHAPES[shape]
     if spec.kind == "train":
         assert (x["argument_bytes"], x["alias_bytes"]) == \
             (mem["argument_bytes"], mem["alias_bytes"])
@@ -392,12 +409,71 @@ def test_executed_collectives_counts_loop_trips():
     assert executed_collectives(hlo) == {"all-gather": 64 + 3 * 8 * 32,
                                          "all-reduce": 3 * 16}
 
-# `main --all`: the 16x16 cells left out, with the reason.
-ALL_LEFT_OUT = {
-    ("hymba-1.5b", "train_4k"): "the reference's compile did not end in "
-    "600 s; the port traces its 32 layers whole (~46 min)",
-    ("hymba-1.5b", "prefill_32k"): "the reference's compile did not end in "
-    "600 s; the port traces its 32 layers whole (~40 min)"}
+# hymba-1.5b's train_4k and prefill_32k, held at a cut depth: 4 layers,
+# global 0 and 2 (hymba's widths, both of its layer kinds; the 4-layer
+# model has a period, so the port traces it by the shortcut).  At full
+# depth the reference compiles them in 660 s and 37 s on an 8-core
+# host (jax 0.9.0), and the port traces them in minutes; at this depth
+# 32 s and 6 s.  Both sides read `get_config` patched to the cut
+# (`_at_depth`), in a child of their own (the reference's) with
+# HYMBA_TIMEOUT seconds, so a slow compile fails only these cells.
+# Before their Mamba scans' products kept batch and channels split
+# (`models.common.contract`) and their prefill unembedded only the last
+# position (`TransformerLM.prefill`), they read (port / XLA): prefill
+# peak 1.447, all-gather 2.965 a step (32,810 gathers, about four in
+# every chunk of every layer); train peak 0.850, all-gather 6.305,
+# all-to-all 9.213.  Measured first now: prefill peak 0.721, all-gather
+# 0.015; train peak 0.851, all-gather 0.880.
+HYMBA = (("hymba-1.5b", "prefill_32k"), ("hymba-1.5b", "train_4k"))
+HYMBA_DEPTH = {"num_layers": 4, "global_layers": (0, 2)}
+HYMBA_TIMEOUT = 300
+AT_DEPTH = textwrap.dedent("""
+    import dataclasses
+    from repro.launch import dryrun as _cut
+    _config = _cut.get_config
+    _cut.get_config = lambda arch: dataclasses.replace(
+        _config(arch), **{changes!r})
+""")
+
+
+def _at_depth(arch):
+    return dataclasses.replace(get_config(arch), **HYMBA_DEPTH)
+
+
+@pytest.fixture(scope="module")
+def hymba_records():
+    """The reference's records of HYMBA at HYMBA_DEPTH, compiled in a
+    child started first, and the port's, traced meanwhile."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    code = AT_DEPTH.format(changes=HYMBA_DEPTH) + REF.format(cells=HYMBA)
+    with ThreadPoolExecutor(1) as pool:
+        child = pool.submit(_child_json, code, HYMBA_TIMEOUT)
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setattr(dryrun, "get_config", _at_depth)
+            port = {f"{a}|{s}": dryrun.lower_cell(a, s, False)
+                    for a, s in HYMBA}
+        ref = child.result()
+    assert isinstance(ref, dict), ref
+    return port, ref
+
+
+@pytest.mark.parametrize("arch,shape", HYMBA)
+def test_hymba_cell_against_xla(arch, shape, hymba_records):
+    """hymba-1.5b at HYMBA_DEPTH: argument and alias bytes, the peak in
+    its REPAIRED_PEAK_BAND, the all-gather a step (STEP_HELD) at most
+    GATHER_BAND[1] x XLA's as its step runs them; its scans count their
+    trips, and no counted trip issues a collective."""
+    port, ref = hymba_records
+    rec = port[f"{arch}|{shape}"]
+    _held_against_xla(arch, shape, rec, ref[f"{arch}|{shape}"],
+                      _at_depth(arch))
+    assert rec["scan_trips_counted"] > 0
+    assert not rec["scan_collectives"]
+
+
+# `main --all`: the 16x16 cells left out, with the reason (none).
+ALL_LEFT_OUT = {}
 PORT = textwrap.dedent("""
     import json
     from repro_torch.launch import dryrun
