@@ -143,11 +143,17 @@ Phases, each fatal on failure:
      axis leaves whole or cuts across KV groups: each rank attends its
      rows of queries over every head), rwkv6-7b long_500k (a
      one-token step: its products' partial sums all-reduced at once,
-     no activation gathered around a projection) and hymba-1.5b
+     no activation gathered around a projection), hymba-1.5b
      prefill_32k (32 layers, each a Mamba scan of 2048 chunks whose
      products keep batch and channels split, counted by its trip
-     count on the host and on the card; its host trace in a child
-     started before phase 9, RANK0_TRACED), the dry run's
+     count on the host and on the card) and rwkv6-7b train_4k (its
+     WKV chunk scans counted), and rank 0 of the multi-pod 2 x 16 x 16
+     mesh for starcoder2-7b and qwen2-moe-a2.7b train_4k
+     (RANK0_MULTI_CELLS: the batch, the gradients' reduction and the
+     routing groups split over pod x data); each cell's host trace made
+     in a child started before phase 9 (RANK0_TRACED; the cells (c)'s
+     child traces take its records) but gemma3-1b long_500k's, the dry
+     run's
      partitioned trace on the host (meta tensors) against the same
      partitioned step run for
      real on the card as rank 0 of a one-rank fake process group
@@ -157,10 +163,12 @@ Phases, each fatal on failure:
      holds, and the predicted peak over torch.cuda.max_memory_allocated()
      inside PEAK_BAND, the traced all-gather bytes a microbatch (train),
      a layer (scanned layers; a layer of a microbatch in a scanned train
-     step) or a step (STEP_CELLS) at most GATHER_OVER_REF times the
-     reference's XLA program's (REF_ALL_GATHER), qwen2-moe's whole
-     step's within HOST_AGREE of the figure traced on another torch
-     (HOST_ALL_GATHER), the traced all-to-all beside it, with
+     step) or a step (STEP_CELLS, and the 2x16x16 cells) at most
+     GATHER_OVER_REF times the reference's XLA program's
+     (REF_ALL_GATHER, REF_ALL_GATHER_MULTI), qwen2-moe's and hymba's
+     whole step's and the 2x16x16 cells' within HOST_AGREE of the
+     figure traced on another torch (HOST_ALL_GATHER,
+     HOST_ALL_GATHER_MULTI), the traced all-to-all beside it, with
      collectives_traced beside collectives and the host seconds, run
      after (b) while (c) goes on;
 then one JSON line of kernels, the nvidia-smi line, and the final JSON
@@ -2869,13 +2877,21 @@ RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("starcoder2-7b", "train_4k"),
                ("nemotron-4-15b", "prefill_32k"),
                ("rwkv6-7b", "long_500k"),
-               ("hymba-1.5b", "prefill_32k"))
+               ("hymba-1.5b", "prefill_32k"),
+               ("rwkv6-7b", "train_4k"))
+# 11e: cells run as rank 0 of the multi-pod 2 x 16 x 16 mesh ("pod",
+# "data", "model"), where the batch is split over pod x data: a train
+# step whose gradients are reduced over both (starcoder2) and one whose
+# MoE routing groups are split over both (qwen2-moe).  Held a step.
+RANK0_MULTI_CELLS = (("starcoder2-7b", "train_4k"),
+                     ("qwen2-moe-a2.7b", "train_4k"))
 # 11e: the cells whose all-gather is held a step against XLA's step as
 # it runs (`executed_collectives` in tests/test_torch_dryrun_ref.py),
 # though their layers are scanned: for rwkv6's one-token step XLA's HLO
 # gathers the 32 layers' shift states outside its loop, which no count
-# of layers divides.
-STEP_CELLS = (("rwkv6-7b", "long_500k"),)
+# of layers divides; its train step, whose WKV chunk scans the trace
+# counts (`dryrun._Trace.scan`), likewise.
+STEP_CELLS = (("rwkv6-7b", "long_500k"), ("rwkv6-7b", "train_4k"))
 # 11e: the cells traced by the shortcut whatever their operation count
 # (gemma3's long_500k would trace whole: the first shortcut over two
 # layer kinds held against the card; deepseek's prefill takes it by its
@@ -2904,7 +2920,8 @@ SHORTCUT_CELLS = (("gemma3-1b", "long_500k"),)
 # body, with the update), nemotron's prefill one of its scanned layers,
 # rwkv6's long_500k XLA's step as it runs (its 32 layers' shift states,
 # 1 MB, gathered outside the loop), hymba's prefill XLA's step as it runs
-# (its layers unscanned, each Mamba scan a loop of 2048 trips).
+# (its layers unscanned, each Mamba scan a loop of 2048 trips), rwkv6's
+# train_4k XLA's step as it runs (its microbatch and layer loops).
 REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("gemma3-1b", "decode_32k"): 2_508_893_696,
                   ("mistral-large-123b", "decode_32k"): 2_589_298_688,
@@ -2915,7 +2932,13 @@ REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("starcoder2-7b", "train_4k"): 3_013_558_272,
                   ("nemotron-4-15b", "prefill_32k"): 642_777_088,
                   ("rwkv6-7b", "long_500k"): 1_589_248,
-                  ("hymba-1.5b", "prefill_32k"): 77_880_367_360}
+                  ("hymba-1.5b", "prefill_32k"): 77_880_367_360,
+                  ("rwkv6-7b", "train_4k"): 547_692_609_536}
+# 11e: the same for RANK0_MULTI_CELLS, XLA's step as it runs on the
+# 2x16x16 mesh (`lower_cell(arch, shape, True)`, the same jax and
+# devices; `python tests/test_torch_dryrun_ref.py --all --mesh multi`).
+REF_ALL_GATHER_MULTI = {("starcoder2-7b", "train_4k"): 343_175_020_544,
+                        ("qwen2-moe-a2.7b", "train_4k"): 89_073_942_528}
 GATHER_OVER_REF = 1.25
 # 11e: traced all-gather bytes a whole step that the card's host must
 # reproduce within HOST_AGREE, as this figure was traced on another
@@ -2923,26 +2946,16 @@ GATHER_OVER_REF = 1.25
 # CPU): qwen2-moe's routing's backward scatters its sorted gate values
 # split on the routing groups on either torch
 # (`dryrun._scatter_strategy`; torch 2.11's own scatter gathered them,
-# 85,706,145,792 B).
-HOST_ALL_GATHER = {("qwen2-moe-a2.7b", "train_4k"): 67_586_752_512}
-# 11e: the cells whose host trace takes minutes (hymba's 32 layers of
-# attention by query and key chunks), traced in a child on the host's
-# cores from phase 9 on (RANK0_CHILD), beside the card's phases: 11e
-# runs them on the card and holds the child's records.
-RANK0_TRACED = (("hymba-1.5b", "prefill_32k"),)
-RANK0_CHILD = (
-    "import json, time\n"
-    "from repro_torch.configs import get_config\n"
-    "from repro_torch.launch import dryrun\n"
-    "from repro_torch.launch.mesh import make_production_mesh\n"
-    "from repro_torch.launch.shapes import SHAPES\n"
-    "out = {}\n"
-    f"for a, s in {RANK0_TRACED!r}:\n"
-    "    t = time.perf_counter()\n"
-    "    rec = dryrun.lower(get_config(a), SHAPES[s],\n"
-    "                       make_production_mesh())\n"
-    "    out[f'{a}|{s}'] = (rec, time.perf_counter() - t)\n"
-    "print(json.dumps(out))\n")
+# 85,706,145,792 B); hymba's fused heads' norms cut their input to the
+# scale's split on either torch (`models.common.cut_as`; torch 2.11 had
+# gathered the scale, and the output of `fuse_out`, 7,374,032,000 B).
+HOST_ALL_GATHER = {("qwen2-moe-a2.7b", "train_4k"): 67_586_752_512,
+                   ("hymba-1.5b", "prefill_32k"): 498_896_000}
+# 11e: the same for RANK0_MULTI_CELLS on 2x16x16 (`lower_cell(arch,
+# shape, True)`, torch 2.13 on the CPU): the first 3-axis mesh the
+# card's torch traces.
+HOST_ALL_GATHER_MULTI = {("starcoder2-7b", "train_4k"): 89_766_494_208,
+                         ("qwen2-moe-a2.7b", "train_4k"): 33_944_764_416}
 HOST_AGREE = 0.01
 # 11c: the 16x16 cells whose partitioned trace once failed (the MoE
 # dispatch over split groups, rwkv6's views of split dimensions,
@@ -2957,6 +2970,7 @@ REPAIRED_CELLS = (("qwen2-moe-a2.7b", "train_4k"),
                   ("whisper-small", "prefill_32k"),
                   ("whisper-small", "decode_32k"))
 REPAIRED_CHILD = (
+    "import json\n"
     "from repro_torch.launch import dryrun\n"
     f"cells = {REPAIRED_CELLS!r}\n"
     "rs = [r for a, s in cells\n"
@@ -2964,7 +2978,24 @@ REPAIRED_CHILD = (
     "n = [sum(r['status'] == k for r in rs)\n"
     "     for k in ('OK', 'LOWERED', 'SKIP', 'FAIL')]\n"
     "print(f'== dry-run: {n[0]} OK, {n[1]} LOWERED, {n[2]} SKIP, '\n"
-    "      f'{n[3]} FAIL of {len(rs)} cells ==')\n")
+    "      f'{n[3]} FAIL of {len(rs)} cells ==')\n"
+    "print(json.dumps({f\"{r['arch']}|{r['shape']}|{r['mesh']}\": r\n"
+    "                  for r in rs if r['status'] == 'OK'}))\n")
+# 11e: the host traces of its cells, made in a child on the host's
+# cores from phase 9 on (RANK0_CHILD), beside the card's phases, so
+# that 11e runs the cells on the card and holds the child's records:
+# every cell but those 11c's child traces (11e takes their records
+# from that child) and those 11e traces by the shortcut.  Records are
+# keyed "arch|shape|mesh", as 11c's child keys its own.
+RANK0_TRACED = (*((a, s, False) for a, s in RANK0_CELLS
+                  if (a, s) not in REPAIRED_CELLS + SHORTCUT_CELLS),
+                *((a, s, True) for a, s in RANK0_MULTI_CELLS))
+RANK0_CHILD = (
+    "import json\n"
+    "from repro_torch.launch import dryrun\n"
+    f"rs = [dryrun.lower_cell(a, s, m) for a, s, m in {RANK0_TRACED!r}]\n"
+    "print(json.dumps({f\"{r['arch']}|{r['shape']}|{r['mesh']}\": r\n"
+    "                  for r in rs}))\n")
 DRYRUN_OUT = os.path.join("build", "dryrun")
 DRYRUN_SUMMARY = re.compile(r"== dry-run: (\d+) OK, (\d+) LOWERED, "
                             r"(\d+) SKIP, (\d+) FAIL of (\d+) cells ==")
@@ -3204,11 +3235,13 @@ def _card_peak(make):
     return held, peak
 
 
-def rank0_on_card(smi, child=None):
+def rank0_on_card(smi, child=None, repaired=None):
     """Phase 11e: the dry run's partitioned trace of a production cell
     against the same partitioned step run on the card as rank 0.
     `child`, if given, is the process started with RANK0_CHILD, whose
-    records of RANK0_TRACED the cells take (else each is traced here)."""
+    records of RANK0_TRACED the cells take, and `repaired` the one
+    started with REPAIRED_CHILD, whose records the cells it traced take
+    (any other cell is traced here)."""
     import json
 
     import torch
@@ -3218,28 +3251,39 @@ def rank0_on_card(smi, child=None):
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.shapes import SHAPES
 
-    mesh = make_production_mesh()
     t_cells = time.perf_counter()
-    records = None
-    for arch, shape_name in RANK0_CELLS:
+    jobs = [(job, what, cells) for job, what, cells in (
+        (repaired, "11c's traces of the repaired cells",
+         [(a, s, False) for a, s in REPAIRED_CELLS]),
+        (child, f"11e's traces of {RANK0_TRACED}", RANK0_TRACED))
+        if job is not None]
+    records = {}
+    cells = ([(a, s, False) for a, s in RANK0_CELLS]
+             + [(a, s, True) for a, s in RANK0_MULTI_CELLS])
+    for arch, shape_name, multi_pod in cells:
         cfg, shape = get_config(arch), SHAPES[shape_name]
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        name = "2x16x16" if multi_pod else "16x16"
+        key = f"{arch}|{shape_name}|{name}"
         t0 = time.perf_counter()
-        if child is not None and (arch, shape_name) in RANK0_TRACED:
-            if records is None:
-                out, wall = _finish(child, "11e's traces of "
-                                    f"{RANK0_TRACED}")
-                records = json.loads(out.strip().splitlines()[-1])
-                print(f"11e the child's traces of {RANK0_TRACED} ended "
-                      f"{wall:.3f} s after it started (phase 9)")
-            rec, host_s = records[f"{arch}|{shape_name}"]
+        for job, what, traced in jobs:
+            if (arch, shape_name, multi_pod) in traced and \
+                    key not in records:
+                out, wall = _finish(job, what)
+                records.update(json.loads(out.strip().splitlines()[-1]))
+                print(f"11e {what} ended {wall:.3f} s after they started "
+                      f"(phase 9)")
+        if key in records:
+            rec = records[key]
+            host_s = rec["lower_s"] + rec["compile_s"]
         else:
             rec = dryrun.lower(cfg, shape, mesh, shortcut=(
                 True if (arch, shape_name) in SHORTCUT_CELLS else None))
             host_s = time.perf_counter() - t0
         if rec.get("status") != "OK" or not rec["partitioned"] or \
                 rec["trace_scope"] != "device":
-            fail(f"11e {arch} {shape_name}: the dry run's record is not a "
-                 f"partitioned device trace: {rec}")
+            fail(f"11e {arch} {shape_name} ({name}): the dry run's record "
+                 f"is not a partitioned device trace: {rec}")
         held = {}
 
         def before(local):
@@ -3258,41 +3302,44 @@ def rank0_on_card(smi, child=None):
         torch.cuda.empty_cache()
         mem = rec["memory"]
         if mem["argument_bytes"] != held["bytes"]:
-            fail(f"11e {arch} {shape_name}: predicted argument bytes "
-                 f"{mem['argument_bytes']} != the {held['bytes']} bytes of "
-                 f"the local tensors rank 0 holds on the card")
+            fail(f"11e {arch} {shape_name} ({name}): predicted argument "
+                 f"bytes {mem['argument_bytes']} != the {held['bytes']} "
+                 f"bytes of the local tensors rank 0 holds on the card")
         predicted = (mem["argument_bytes"] + mem["output_bytes"]
                      + mem["temp_bytes"] - mem["alias_bytes"])
         lo, hi = PEAK_BAND[shape.kind]
         ratio = predicted / peak
         if not lo <= ratio <= hi:
-            fail(f"11e {arch} {shape_name}: predicted peak {predicted} over "
-                 f"max_memory_allocated() {peak} = {ratio:.4f}, outside "
-                 f"{lo}-{hi}")
+            fail(f"11e {arch} {shape_name} ({name}): predicted peak "
+                 f"{predicted} over max_memory_allocated() {peak} = "
+                 f"{ratio:.4f}, outside {lo}-{hi}")
         traced, implied = rec["collectives_traced"], rec["collectives"]
         scanned = cfg.scan_layers and not cfg.moe_dense_layers
-        per, unit = ((rec["n_micro"] * cfg.num_layers,
-                      "layer of a microbatch")
+        per, unit = ((1, "step")
+                     if multi_pod or (arch, shape_name) in STEP_CELLS
+                     else (rec["n_micro"] * cfg.num_layers,
+                           "layer of a microbatch")
                      if shape.kind == "train" and scanned
                      else (rec["n_micro"], "microbatch")
                      if shape.kind == "train"
-                     else (cfg.num_layers, "layer")
-                     if scanned and (arch, shape_name) not in STEP_CELLS
+                     else (cfg.num_layers, "layer") if scanned
                      else (1, "step"))
         gather = traced.get("all-gather", 0.0) / per
-        ref = REF_ALL_GATHER[arch, shape_name]
+        ref = (REF_ALL_GATHER_MULTI if multi_pod
+               else REF_ALL_GATHER)[arch, shape_name]
         if gather > GATHER_OVER_REF * ref:
-            fail(f"11e {arch} {shape_name}: traced all-gather {gather:.0f} "
-                 f"bytes a {unit}, above {GATHER_OVER_REF} x the "
+            fail(f"11e {arch} {shape_name} ({name}): traced all-gather "
+                 f"{gather:.0f} bytes a {unit}, above {GATHER_OVER_REF} x the "
                  f"reference's {ref:.0f}")
-        host = HOST_ALL_GATHER.get((arch, shape_name))
+        host = (HOST_ALL_GATHER_MULTI if multi_pod
+                else HOST_ALL_GATHER).get((arch, shape_name))
         if host is not None and abs(traced.get("all-gather", 0.0) / host
                                     - 1) > HOST_AGREE:
-            fail(f"11e {arch} {shape_name}: traced all-gather "
+            fail(f"11e {arch} {shape_name} ({name}): traced all-gather "
                  f"{traced.get('all-gather', 0.0):.0f} bytes a step on this "
                  f"host's torch {torch.__version__}, not within "
                  f"{HOST_AGREE:.0%} of the {host} bytes traced on torch 2.13")
-        print(f"11e {arch} {shape_name}, rank 0 of 16x16 "
+        print(f"11e {arch} {shape_name}, rank 0 of {name} "
               f"({rec['trace_mode']} partitioned trace, "
               f"{rec.get('n_micro', 1)} microbatch(es) on the host, one on "
               f"the card): argument bytes predicted "
@@ -3317,7 +3364,7 @@ def rank0_on_card(smi, child=None):
               f"{rec['scan_collectives']}); "
               f"host {host_s:.3f} s to trace, {run_s:.3f} s to run on the "
               f"card; card={smi}")
-    print(f"11e: {len(RANK0_CELLS)} cells in "
+    print(f"11e: {len(cells)} cells in "
           f"{time.perf_counter() - t_cells:.3f} s wall")
 
 
@@ -3407,7 +3454,7 @@ def launch_layer(smi, repaired, rank0=None):
 
     serve_steps(smi)
     dryrun_against_card(smi)
-    rank0_on_card(smi, rank0)
+    rank0_on_card(smi, rank0, repaired)
 
     for started, what, want in (
             (cells, f"dryrun --arch {LM_ARCH} --mesh both", (8, 0, 0, 0, 8)),

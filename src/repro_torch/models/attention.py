@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.common import (contiguous_stride, contract,
+from repro_torch.models.common import (contiguous_stride, contract, cut_as,
                                        is_split, project, reduce_over,
                                        slot_positions, write_columns_,
                                        write_rows_)
@@ -361,7 +361,10 @@ def out_project(o: torch.Tensor, p: Dict) -> torch.Tensor:
 def _rms(x, scale, eps=1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    # Over DTensors, a scale split where x is whole cuts x (hymba's fused
+    # heads' norms), whatever the torch's strategy for the product.
+    return (cut_as(xf * torch.rsqrt(var + eps), scale)
+            * scale.float()).to(x.dtype)
 
 
 def maybe_qk_norm(q, k, p, eps=1e-6):

@@ -290,6 +290,37 @@ def partial_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return _AsPartial.apply(t, axes) if axes else t
 
 
+def cut_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`t`, to be multiplied elementwise by `like` (of `t`'s trailing
+    dimensions, as broadcasting aligns them).  On plain tensors it is
+    `t`.  Over DTensors, on each mesh axis where `t` is whole and `like`
+    splits a dimension, `t` is cut to that split (each rank keeps its
+    slice, which moves nothing), as GSPMD places the product and torch
+    2.13's strategy for it does; torch 2.11's gathers `like` instead.
+    The gradient is left as it comes, as for a cut DTensor makes inside
+    an op."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    lead = t.ndim - like.ndim
+    places = [Shard(q.dim + lead) if p.is_replicate() and q.is_shard()
+              and n > 1 else p for p, q, n in zip(
+                  t.placements, like.placements, t.device_mesh.shape)]
+    return _Cut.apply(t, places) if places != list(t.placements) else t
+
+
+class _Cut(torch.autograd.Function):
+    """A DTensor redistributed from whole to split on some mesh axes (a
+    slice on each rank); its gradient passes as it comes."""
+
+    @staticmethod
+    def forward(ctx, t, places):
+        return t.redistribute(t.device_mesh, places)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class _AsPartial(torch.autograd.Function):
     """A DTensor whole on the mesh axes `axes` made a partial sum there:
     each rank keeps its share, the local tensor over the axes' size (a

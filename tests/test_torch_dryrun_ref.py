@@ -246,9 +246,9 @@ REF = textwrap.dedent("""
     from repro.launch import dryrun
     hlo, count = [], dryrun.collective_bytes
     dryrun.collective_bytes = lambda text: hlo.append(text) or count(text)
-    print(json.dumps({{f"{{a}}|{{s}}": dict(dryrun.lower_cell(a, s, False),
-                                          hlo=hlo.pop())
-                      for a, s in {cells!r}}}))
+    print(json.dumps({{f"{{a}}|{{s}}": dict(
+        dryrun.lower_cell(a, s, {multi_pod}), hlo=hlo.pop())
+        for a, s in {cells!r}}}))
 """)
 
 
@@ -268,13 +268,20 @@ def _child_json(code, timeout):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def _both(cells):
-    """The reference's records of `cells` (compiled in a child with 512
-    placeholder devices, each with its compiled HLO under "hlo") and the
-    port's, keyed "arch|shape"."""
-    ref = _child_json(REF.format(cells=cells), 600)
+def _both(cells, multi_pod=False):
+    """The reference's records of `cells` on the 16x16 mesh, or with
+    `multi_pod` the 2x16x16 one (compiled in a child with 512
+    placeholder devices, started first, each with its compiled HLO
+    under "hlo") and the port's, traced meanwhile; keyed "arch|shape"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        child = pool.submit(_child_json, REF.format(
+            cells=cells, multi_pod=multi_pod), 600)
+        port = {f"{a}|{s}": dryrun.lower_cell(a, s, multi_pod)
+                for a, s in cells}
+        ref = child.result()
     assert isinstance(ref, dict), ref
-    port = {f"{a}|{s}": dryrun.lower_cell(a, s, False) for a, s in cells}
     return port, ref
 
 
@@ -337,11 +344,16 @@ def test_repaired_cell_against_xla(arch, shape, repaired_records):
                       ref[f"{arch}|{shape}"], get_config(arch))
 
 
-def _held_against_xla(arch, shape, rec, xla, cfg):
+def _held_against_xla(arch, shape, rec, xla, cfg, *,
+                      peak_bands=REPAIRED_PEAK_BAND,
+                      alone_bands=GATHER_ALONE_BAND, step_held=STEP_HELD,
+                      gather_held=GATHER_HELD):
     """`rec`, the port's record of `cfg` at `shape`, against XLA's
     `xla`: argument and alias bytes as the two programs hold them, the
-    peak in its band, the all-gather as GATHER_HELD, STEP_HELD and
-    GATHER_ALONE_BAND hold it."""
+    peak in its band of `peak_bands` (keyed by cell or arch), the
+    all-gather as `gather_held`, `step_held` and `alone_bands` hold it
+    (by default the 16x16 cells' REPAIRED_PEAK_BAND, GATHER_HELD,
+    STEP_HELD and GATHER_ALONE_BAND)."""
     assert rec["status"] == xla["status"] == "OK" and rec["partitioned"]
     assert rec["trace_scope"] == "device"
     mem, x = rec["memory"], xla["memory"]
@@ -351,12 +363,13 @@ def _held_against_xla(arch, shape, rec, xla, cfg):
             (mem["argument_bytes"], mem["alias_bytes"])
     else:
         args_unread, alias_unread = unread_bytes(
-            cfg, spec, make_production_mesh(multi_pod=False))
+            cfg, spec,
+            make_production_mesh(multi_pod=rec["mesh"] == "2x16x16"))
         assert (x["argument_bytes"], x["alias_bytes"]) == (
             mem["argument_bytes"] - args_unread + INDEX_BYTES,
             mem["alias_bytes"] - alias_unread + INDEX_BYTES)
     peak, ref_peak = _peak(mem), _peak(x)
-    if arch in STEP_HELD or (arch, shape) in STEP_HELD:
+    if arch in step_held or (arch, shape) in step_held:
         per, unit, moved = 1, "step", executed_collectives(xla["hlo"])
     else:
         per = (rec.get("n_micro", 1) if spec.kind == "train" else 1) * \
@@ -375,16 +388,15 @@ def _held_against_xla(arch, shape, rec, xla, cfg):
           f"{traced.get('all-reduce', 0.0):.0f} B "
           f"({moved.get('all-reduce', 0.0):.0f} B); argument bytes "
           f"{mem['argument_bytes']}, XLA's {x['argument_bytes']}")
-    lo, hi = REPAIRED_PEAK_BAND.get((arch, shape)) or \
-        REPAIRED_PEAK_BAND[arch]
+    lo, hi = peak_bands.get((arch, shape)) or peak_bands[arch]
     assert lo <= peak / ref_peak <= hi
-    if (arch, shape) in GATHER_ALONE_BAND:
-        lo, hi = GATHER_ALONE_BAND[arch, shape]
+    if (arch, shape) in alone_bands:
+        lo, hi = alone_bands[arch, shape]
         assert lo <= gather / want <= hi
         kinds = ("all-gather", "all-to-all")
         assert sum(traced.get(k, 0.0) for k in kinds) <= GATHER_BAND[1] * \
             sum(moved.get(k, 0.0) for k in kinds)
-    elif arch in GATHER_HELD:
+    elif arch in gather_held or (arch, shape) in gather_held:
         assert gather / want <= GATHER_BAND[1]
 
 
@@ -446,7 +458,7 @@ def hymba_records():
     child started first, and the port's, traced meanwhile."""
     from concurrent.futures import ThreadPoolExecutor
 
-    code = AT_DEPTH.format(changes=HYMBA_DEPTH) + REF.format(cells=HYMBA)
+    code = AT_DEPTH.format(changes=HYMBA_DEPTH) + REF.format(cells=HYMBA, multi_pod=False)
     with ThreadPoolExecutor(1) as pool:
         child = pool.submit(_child_json, code, HYMBA_TIMEOUT)
         with pytest.MonkeyPatch.context() as patch:
@@ -472,47 +484,62 @@ def test_hymba_cell_against_xla(arch, shape, hymba_records):
     assert not rec["scan_collectives"]
 
 
-# `main --all`: the 16x16 cells left out, with the reason (none).
+# `main --all`: the cells left out, with the reason (none).
 ALL_LEFT_OUT = {}
 PORT = textwrap.dedent("""
     import json
     from repro_torch.launch import dryrun
-    print(json.dumps(dryrun.lower_cell({arch!r}, {shape!r}, False)))
+    print(json.dumps(dryrun.lower_cell({arch!r}, {shape!r}, {multi_pod})))
 """)
 
 
-def compare_all(jobs, timeout):
-    """Every runnable 16x16 cell but ALL_LEFT_OUT: the reference's
-    `lower_cell` in a child with `timeout` seconds, then the port's in
-    another, `jobs` cells at a time; prints each cell's peak and
-    all-gather a step (XLA's as its step runs them,
-    `executed_collectives`), port / XLA, a cell above GATHER_BAND[1]
-    on either marked, and returns the rows."""
+def compare_all(jobs, timeout, multi_pod=False):
+    """Every runnable cell of the 16x16 mesh, or with `multi_pod` the
+    2x16x16 one, but ALL_LEFT_OUT: the reference's `lower_cell` in a
+    child with `timeout` seconds, then the port's in another, `jobs`
+    cells at a time; prints each cell's peak and all-gather a step
+    (XLA's as its step runs them, `executed_collectives`), port / XLA,
+    a cell above GATHER_BAND[1] on either marked, then one JSON line a
+    cell with the bytes (its all-to-all too, and its argument bytes as
+    the port holds them less `unread_bytes` beside XLA's), and returns
+    the rows."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch.shapes import cell_is_runnable
 
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    name = "2x16x16" if multi_pod else "16x16"
     cells = [(a, s) for a in ARCH_IDS for s in SHAPES
              if cell_is_runnable(get_config(a), SHAPES[s])[0]
              and (a, s) not in ALL_LEFT_OUT]
 
     def one(cell):
-        ref = _child_json(REF.format(cells=[cell]), timeout)
-        port = _child_json(PORT.format(arch=cell[0], shape=cell[1]),
-                           timeout)
+        ref = _child_json(REF.format(cells=[cell], multi_pod=multi_pod),
+                          timeout)
+        port = _child_json(PORT.format(arch=cell[0], shape=cell[1],
+                                       multi_pod=multi_pod), timeout)
         if isinstance(ref, str) or isinstance(port, str):
             return cell, "; ".join(
                 f"{who}: {got.strip().splitlines()[-1]}" for who, got in
                 (("reference", ref), ("port", port)) if isinstance(got, str))
         xla = ref[f"{cell[0]}|{cell[1]}"]
         moved = executed_collectives(xla["hlo"])
-        peak, ref_peak = _peak(port["memory"]), _peak(xla["memory"])
-        gather = port["collectives_traced"].get("all-gather", 0.0)
-        return cell, (peak, ref_peak, gather, moved.get("all-gather", 0))
+        traced = port["collectives_traced"]
+        spec = SHAPES[cell[1]]
+        unread = 0 if spec.kind == "train" else unread_bytes(
+            get_config(cell[0]), spec, mesh)[0]
+        return cell, {
+            "peak": _peak(port["memory"]), "ref_peak": _peak(xla["memory"]),
+            "all-gather": traced.get("all-gather", 0.0),
+            "ref_all-gather": moved.get("all-gather", 0),
+            "all-to-all": traced.get("all-to-all", 0.0),
+            "ref_all-to-all": moved.get("all-to-all", 0),
+            "argument_bytes": port["memory"]["argument_bytes"] - unread,
+            "ref_argument_bytes": xla["memory"]["argument_bytes"]}
 
-    print("| cell (16x16) | peak GiB, port / XLA (x) | all-gather GB a step, "
-          "port / XLA (x) |\n|---|---|---|")
+    print(f"| cell ({name}) | peak GiB, port / XLA (x) | all-gather GB a "
+          f"step, port / XLA (x) |\n|---|---|---|")
     rows = []
     with ThreadPoolExecutor(jobs) as pool:
         for (arch, shape), got in pool.map(one, cells):
@@ -520,7 +547,8 @@ def compare_all(jobs, timeout):
             if isinstance(got, str):
                 print(f"| {arch} {shape} | {got} | |", flush=True)
                 continue
-            peak, ref_peak, gather, want = got
+            peak, ref_peak = got["peak"], got["ref_peak"]
+            gather, want = got["all-gather"], got["ref_all-gather"]
             ratio = gather / want if want else float("inf")
             above = max(peak / ref_peak, ratio) > GATHER_BAND[1]
             print(f"| {arch} {shape}{' (above)' if above else ''} | "
@@ -529,18 +557,23 @@ def compare_all(jobs, timeout):
                   f"{want / 1e9:.4g} ({ratio:.3f}) |", flush=True)
     for cell, why in ALL_LEFT_OUT.items():
         print(f"| {' '.join(cell)} | left out: {why} | |")
+    for arch, shape, got in rows:
+        if not isinstance(got, str):
+            print(json.dumps({"cell": f"{arch}|{shape}|{name}", **got}))
     return rows
 
 
 def main(argv=None):
     """`python tests/test_torch_dryrun_ref.py ARCH SHAPE [N] [PATTERN]`:
-    the reference's compiled cell on 16x16 (`lower_cell`'s program):
+    the reference's compiled cell on 16x16, or with `--mesh multi`
+    2x16x16 (`lower_cell`'s program):
     its memory, its N largest collectives grouped by kind, result shape
     and op name, and how many HLO instructions have a result matching
     the regex PATTERN (e.g. 'f32\\[88,').
-    `python tests/test_torch_dryrun_ref.py --all [--jobs J] [--timeout
-    S]`: `compare_all`, the port against the reference on every runnable
-    16x16 cell."""
+    `python tests/test_torch_dryrun_ref.py --all [--mesh single|multi]
+    [--jobs J] [--timeout S]`: `compare_all`, the port against the
+    reference on every runnable cell of the 16x16 mesh (`single`, the
+    default) or the 2x16x16 one (`multi`)."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -551,9 +584,10 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--timeout", type=int, default=900)
+    ap.add_argument("--mesh", choices=("single", "multi"), default="single")
     args = ap.parse_args(argv)
     if args.all:
-        compare_all(args.jobs, args.timeout)
+        compare_all(args.jobs, args.timeout, args.mesh == "multi")
         return
     if args.shape is None:
         ap.error("ARCH and SHAPE, or --all")
@@ -568,7 +602,7 @@ def main(argv=None):
         return real(hlo)
 
     ref_dryrun.collective_bytes = keep
-    rec = ref_dryrun.lower_cell(args.arch, args.shape, False)
+    rec = ref_dryrun.lower_cell(args.arch, args.shape, args.mesh == "multi")
     print(json.dumps({k: rec[k] for k in ("memory", "collectives")}))
     groups = collections.Counter()
     sizes = {}
