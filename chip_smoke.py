@@ -146,12 +146,15 @@ Phases, each fatal on failure:
      no activation gathered around a projection), hymba-1.5b
      prefill_32k (32 layers, each a Mamba scan of 2048 chunks whose
      products keep batch and channels split, counted by its trip
-     count on the host and on the card) and rwkv6-7b train_4k (its
-     WKV chunk scans counted), and rank 0 of the multi-pod 2 x 16 x 16
+     count on the host and on the card), rwkv6-7b train_4k (its
+     WKV chunk scans counted) and hymba-1.5b train_4k (its Mamba scans
+     counted forward and back, its embedding's gradient a partial sum
+     reduce-scattered onto the table's columns), and rank 0 of the
+     multi-pod 2 x 16 x 16
      mesh for starcoder2-7b and qwen2-moe-a2.7b train_4k
      (RANK0_MULTI_CELLS: the batch, the gradients' reduction and the
      routing groups split over pod x data); each cell's host trace made
-     in a child started before phase 9 (RANK0_TRACED; the cells (c)'s
+     in children started before phase 9 (RANK0_GROUPS; the cells (c)'s
      child traces take its records) but gemma3-1b long_500k's, the dry
      run's
      partitioned trace on the host (meta tensors) against the same
@@ -166,7 +169,7 @@ Phases, each fatal on failure:
      step) or a step (STEP_CELLS, and the 2x16x16 cells) at most
      GATHER_OVER_REF times the reference's XLA program's
      (REF_ALL_GATHER, REF_ALL_GATHER_MULTI), qwen2-moe's and hymba's
-     whole step's and the 2x16x16 cells' within HOST_AGREE of the
+     whole steps' and the 2x16x16 cells' within HOST_AGREE of the
      figure traced on another torch (HOST_ALL_GATHER,
      HOST_ALL_GATHER_MULTI), the traced all-to-all beside it, with
      collectives_traced beside collectives and the host seconds, run
@@ -2867,7 +2870,11 @@ PEAK_BAND = {"train": (0.9, 1.1), "decode": (0.8, 1.25),
 # host and on the card alike (`dryrun._Trace.scan`: a few chunks run,
 # the others stand in with the tensors a run chunk leaves), each chunk's
 # products on the rank's own rows and channels (no collective in a
-# chunk), and unembeds only the last position.
+# chunk), and unembeds only the last position; its train step runs the
+# same scans forward and back, and its embedding, a table every rank
+# holds whole (32001 rows, which 16 does not divide), is looked up on
+# each rank's own ids, its gradient a partial sum reduce-scattered onto
+# the table's columns (`models.common.take_rows`).
 RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("mistral-large-123b", "decode_32k"),
                ("whisper-small", "decode_32k"),
@@ -2878,7 +2885,8 @@ RANK0_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "decode_32k"),
                ("nemotron-4-15b", "prefill_32k"),
                ("rwkv6-7b", "long_500k"),
                ("hymba-1.5b", "prefill_32k"),
-               ("rwkv6-7b", "train_4k"))
+               ("rwkv6-7b", "train_4k"),
+               ("hymba-1.5b", "train_4k"))
 # 11e: cells run as rank 0 of the multi-pod 2 x 16 x 16 mesh ("pod",
 # "data", "model"), where the batch is split over pod x data: a train
 # step whose gradients are reduced over both (starcoder2) and one whose
@@ -2890,8 +2898,11 @@ RANK0_MULTI_CELLS = (("starcoder2-7b", "train_4k"),
 # though their layers are scanned: for rwkv6's one-token step XLA's HLO
 # gathers the 32 layers' shift states outside its loop, which no count
 # of layers divides; its train step, whose WKV chunk scans the trace
-# counts (`dryrun._Trace.scan`), likewise.
-STEP_CELLS = (("rwkv6-7b", "long_500k"), ("rwkv6-7b", "train_4k"))
+# counts (`dryrun._Trace.scan`), likewise; and hymba's train step, whose
+# layers are unscanned and whose Mamba scans are loops in XLA's HLO, as
+# its prefill's.
+STEP_CELLS = (("rwkv6-7b", "long_500k"), ("rwkv6-7b", "train_4k"),
+              ("hymba-1.5b", "train_4k"))
 # 11e: the cells traced by the shortcut whatever their operation count
 # (gemma3's long_500k would trace whole: the first shortcut over two
 # layer kinds held against the card; deepseek's prefill takes it by its
@@ -2921,7 +2932,8 @@ SHORTCUT_CELLS = (("gemma3-1b", "long_500k"),)
 # rwkv6's long_500k XLA's step as it runs (its 32 layers' shift states,
 # 1 MB, gathered outside the loop), hymba's prefill XLA's step as it runs
 # (its layers unscanned, each Mamba scan a loop of 2048 trips), rwkv6's
-# train_4k XLA's step as it runs (its microbatch and layer loops).
+# train_4k XLA's step as it runs (its microbatch and layer loops), and
+# hymba's train_4k likewise (its microbatch loop and Mamba scans).
 REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("gemma3-1b", "decode_32k"): 2_508_893_696,
                   ("mistral-large-123b", "decode_32k"): 2_589_298_688,
@@ -2933,7 +2945,8 @@ REF_ALL_GATHER = {("gemma3-1b", "train_4k"): 9_137_831_936,
                   ("nemotron-4-15b", "prefill_32k"): 642_777_088,
                   ("rwkv6-7b", "long_500k"): 1_589_248,
                   ("hymba-1.5b", "prefill_32k"): 77_880_367_360,
-                  ("rwkv6-7b", "train_4k"): 547_692_609_536}
+                  ("rwkv6-7b", "train_4k"): 547_692_609_536,
+                  ("hymba-1.5b", "train_4k"): 126_416_804_096}
 # 11e: the same for RANK0_MULTI_CELLS, XLA's step as it runs on the
 # 2x16x16 mesh (`lower_cell(arch, shape, True)`, the same jax and
 # devices; `python tests/test_torch_dryrun_ref.py --all --mesh multi`).
@@ -2948,9 +2961,14 @@ GATHER_OVER_REF = 1.25
 # (`dryrun._scatter_strategy`; torch 2.11's own scatter gathered them,
 # 85,706,145,792 B); hymba's fused heads' norms cut their input to the
 # scale's split on either torch (`models.common.cut_as`; torch 2.11 had
-# gathered the scale, and the output of `fuse_out`, 7,374,032,000 B).
+# gathered the scale, and the output of `fuse_out`, 7,374,032,000 B);
+# hymba's train step looks its whole embedding table up on each rank's
+# own ids, the gradient a partial sum (`models.common.take_rows`; torch
+# 2.11's `index_put` strategy failed on it, torch 2.13's gathered the
+# gradient rows, 3,363,831,808 B a step more).
 HOST_ALL_GATHER = {("qwen2-moe-a2.7b", "train_4k"): 67_586_752_512,
-                   ("hymba-1.5b", "prefill_32k"): 498_896_000}
+                   ("hymba-1.5b", "prefill_32k"): 498_896_000,
+                   ("hymba-1.5b", "train_4k"): 79_035_025_408}
 # 11e: the same for RANK0_MULTI_CELLS on 2x16x16 (`lower_cell(arch,
 # shape, True)`, torch 2.13 on the CPU): the first 3-axis mesh the
 # card's torch traces.
@@ -2981,21 +2999,33 @@ REPAIRED_CHILD = (
     "      f'{n[3]} FAIL of {len(rs)} cells ==')\n"
     "print(json.dumps({f\"{r['arch']}|{r['shape']}|{r['mesh']}\": r\n"
     "                  for r in rs if r['status'] == 'OK'}))\n")
-# 11e: the host traces of its cells, made in a child on the host's
-# cores from phase 9 on (RANK0_CHILD), beside the card's phases, so
-# that 11e runs the cells on the card and holds the child's records:
-# every cell but those 11c's child traces (11e takes their records
-# from that child) and those 11e traces by the shortcut.  Records are
-# keyed "arch|shape|mesh", as 11c's child keys its own.
+# 11e: the host traces of its cells, made in children on the host's
+# cores from phase 9 on (`rank0_child`, one for each group of
+# RANK0_GROUPS), beside the card's phases, so that 11e runs the cells on
+# the card and holds the children's records: every cell but those 11c's
+# child traces (11e takes their records from that child) and those 11e
+# traces by the shortcut.  hymba's train step takes a child of its own:
+# its two traces (with and without remat) take minutes, which behind
+# the others would hold 11e back.  Records are keyed "arch|shape|mesh",
+# as 11c's child keys its own.
 RANK0_TRACED = (*((a, s, False) for a, s in RANK0_CELLS
                   if (a, s) not in REPAIRED_CELLS + SHORTCUT_CELLS),
                 *((a, s, True) for a, s in RANK0_MULTI_CELLS))
-RANK0_CHILD = (
-    "import json\n"
-    "from repro_torch.launch import dryrun\n"
-    f"rs = [dryrun.lower_cell(a, s, m) for a, s, m in {RANK0_TRACED!r}]\n"
-    "print(json.dumps({f\"{r['arch']}|{r['shape']}|{r['mesh']}\": r\n"
-    "                  for r in rs}))\n")
+RANK0_APART = (("hymba-1.5b", "train_4k", False),)
+RANK0_GROUPS = (tuple(c for c in RANK0_TRACED if c not in RANK0_APART),
+                *((c,) for c in RANK0_APART))
+
+
+def rank0_child(cells):
+    """The code of a child that traces `cells` ((arch, shape, multi_pod)
+    each) and prints their records as its last line."""
+    return ("import json\n"
+            "from repro_torch.launch import dryrun\n"
+            f"rs = [dryrun.lower_cell(a, s, m) for a, s, m in {cells!r}]\n"
+            "print(json.dumps({f\"{r['arch']}|{r['shape']}|{r['mesh']}\": r\n"
+            "                  for r in rs}))\n")
+
+
 DRYRUN_OUT = os.path.join("build", "dryrun")
 DRYRUN_SUMMARY = re.compile(r"== dry-run: (\d+) OK, (\d+) LOWERED, "
                             r"(\d+) SKIP, (\d+) FAIL of (\d+) cells ==")
@@ -3235,13 +3265,13 @@ def _card_peak(make):
     return held, peak
 
 
-def rank0_on_card(smi, child=None, repaired=None):
+def rank0_on_card(smi, children=(), repaired=None):
     """Phase 11e: the dry run's partitioned trace of a production cell
     against the same partitioned step run on the card as rank 0.
-    `child`, if given, is the process started with RANK0_CHILD, whose
-    records of RANK0_TRACED the cells take, and `repaired` the one
-    started with REPAIRED_CHILD, whose records the cells it traced take
-    (any other cell is traced here)."""
+    `children` are (process, cells) pairs, each process started with
+    `rank0_child(cells)`, whose records the cells take, and `repaired`
+    the one started with REPAIRED_CHILD, whose records the cells it
+    traced take (any other cell is traced here)."""
     import json
 
     import torch
@@ -3255,7 +3285,8 @@ def rank0_on_card(smi, child=None, repaired=None):
     jobs = [(job, what, cells) for job, what, cells in (
         (repaired, "11c's traces of the repaired cells",
          [(a, s, False) for a, s in REPAIRED_CELLS]),
-        (child, f"11e's traces of {RANK0_TRACED}", RANK0_TRACED))
+        *((job, f"11e's traces of {cells}", cells)
+          for job, cells in children))
         if job is not None]
     records = {}
     cells = ([(a, s, False) for a, s in RANK0_CELLS]
@@ -3434,12 +3465,12 @@ def quickstart_on_card(smi):
     return launches
 
 
-def launch_layer(smi, repaired, rank0=None):
+def launch_layer(smi, repaired, rank0=()):
     """Phase 11: the launch layer, the dry run and the analytic report,
     and the quickstart (see the module docstring); `repaired` is the
-    child tracing REPAIRED_CELLS, `rank0` the one tracing RANK0_TRACED,
-    both started before phase 9.  Returns the quickstart's rst_read
-    launches."""
+    child tracing REPAIRED_CELLS, `rank0` the (process, cells) pairs of
+    the children tracing RANK0_GROUPS, all started before phase 9.
+    Returns the quickstart's rst_read launches."""
     phase("11. launch layer, dry run and quickstart")
     t_phase = time.perf_counter()
     print(f"card: {smi}")
@@ -3523,7 +3554,8 @@ def main() -> None:
     # 11c's trace of the repaired cells runs on the host's cores from
     # here, beside the card's phases 9-11.
     repaired = _start(["-c", REPAIRED_CHILD])
-    rank0 = _start(["-c", RANK0_CHILD])
+    rank0 = [(_start(["-c", rank0_child(cells)]), cells)
+             for cells in RANK0_GROUPS]
     lm_serving(smi, peak_gbps)
     lm_training(smi, peak_gbps)
     quickstart_launches = launch_layer(smi, repaired, rank0)

@@ -281,7 +281,11 @@ def gspmd_choices():
     A `scatter` (a sort's backward) keeps the split of a dimension it
     does not write along (`_scatter_strategy`, torch 2.13's own), so the
     trace does not depend on the torch: torch 2.11's strategy
-    replicates every operand.
+    replicates every operand.  Likewise an `add` of a partial sum and a
+    whole tensor may stay a partial sum (`_partial_kept`), and a `silu`
+    of a partial sum may reduce-scatter it (`_partial_scattered`), as
+    torch 2.13's strategies offer: torch 2.11's all-reduce the partial
+    sum.
 
     `_select_min_cost_strategy`, the strategies of `view`,
     `_unsafe_view`, `flip` and `scatter`, `shard_dim_alltoall` and the
@@ -305,9 +309,11 @@ def gspmd_choices():
     aten = torch.ops.aten
     scatters = (aten.scatter.src, aten.scatter_.src, aten.scatter.value,
                 aten.scatter_.value)
+    adds = (aten.add.Tensor,)
+    acts = (aten.silu.default,)
     strict = {op: (propagator.op_strategy_funcs.get(op),
                    propagator.op_to_schema_info.get(op))
-              for op in (*views, flip, *scatters)}
+              for op in (*views, flip, *scatters, *adds, *acts)}
 
     def wanted(spec, have):
         return [w.placements for w in
@@ -409,6 +415,13 @@ def gspmd_choices():
     for op in scatters:
         propagator.register_op_strategy(op, _scatter_strategy,
                                         RuntimeSchemaInfo(1))
+    # torch 2.11's pointwise strategies (2.13 derives these ops' from a
+    # single mesh axis's, which offer what these add: left alone).
+    for ops, offer in ((adds, _partial_kept), (acts, _partial_scattered)):
+        for op in ops:
+            if op in propagator.op_strategy_funcs:
+                propagator.op_strategy_funcs[op] = offer(
+                    propagator.op_strategy_funcs[op])
     try:
         yield
     finally:
@@ -506,6 +519,97 @@ def _scatter_strategy(op_schema):
                             for s in shapes)]
     return expand_to_full_mesh_op_strategy(
         src.mesh, op_schema, options, inplace_op=op_schema.is_inplace_op())
+
+
+def _partial_kept(add: Callable) -> Callable:
+    """`add`, a pointwise strategy that follows one operand, made to
+    offer too, on each mesh axis where one operand of two is a partial
+    sum and the other is whole, the partial sum kept: the whole operand
+    made a partial sum (each rank keeps its share, no collective) and
+    the output one, as torch 2.13's strategy offers, where torch 2.11's
+    follows the whole operand and all-reduces the partial sum (a
+    gradient accumulated from a whole and a partial part)."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    def strategy(op_schema):
+        out = add(op_schema)
+        args = [a for a in op_schema.args_schema if isinstance(a, OpStrategy)]
+        if len(args) != 2 or len({a.shape for a in args}) != 1:
+            return out
+        have = [a.strategies[0].output_spec.placements for a in args]
+        axes = {m for m, (p, q) in enumerate(zip(*have))
+                if p.is_partial() != q.is_partial()
+                and (p if p.is_partial() else q).reduce_op == "sum"
+                and (q if p.is_partial() else p).is_replicate()}
+        if not axes:
+            return out
+        part = next(p for p in (*have[0], *have[1]) if p.is_partial())
+
+        def partial(s):
+            return _with_placements(s, [part if m in axes else p
+                                        for m, p in enumerate(s.placements)])
+        kept = []
+        for spec in out.strategies:
+            ins = spec.input_specs
+            if ins is None or not all(
+                    s.placements[m].is_replicate() for s in ins for m in axes):
+                continue
+            ins = [partial(s) for s in ins]
+            kept.append(OpSpec(
+                output_specs=partial(spec.output_spec), input_specs=ins,
+                redistribute_cost=[generate_redistribute_costs(a, s)
+                                   for a, s in zip(args, ins)]))
+        return OpStrategy(kept + list(out.strategies))
+    return strategy
+
+
+def _partial_scattered(unary: Callable) -> Callable:
+    """`unary`, the pointwise strategy of an op that is not linear, made
+    to offer too, where its input is a partial sum on some mesh axes, the
+    sum reduce-scattered there onto a dimension no other axis splits,
+    the output split so, as torch 2.13's strategy offers, where torch
+    2.11's all-reduces it (the MoE experts' gate product, a partial sum
+    over the data axis in a decode step).  The dimensions are offered
+    least padded first (a dimension the axes do not divide is padded to
+    a multiple of them), as a tie is taken in order."""
+    import itertools
+
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    def strategy(op_schema):
+        out = unary(op_schema)
+        arg = op_schema.args_schema[0]
+        if not isinstance(arg, OpStrategy):
+            return out
+        have = arg.strategies[0].output_spec
+        sizes = have.mesh.shape
+        axes = [m for m, p in enumerate(have.placements)
+                if p.is_partial() and p.reduce_op == "sum"]
+        if not axes:
+            return out
+        free = [d for d in range(len(arg.shape))
+                if not any(p.is_shard() and p.dim == d
+                           for p in have.placements)]
+        offered = []
+        for dims in itertools.product(free, repeat=len(axes)):
+            place = list(have.placements)
+            for m, d in zip(axes, dims):
+                place[m] = Shard(d)
+            parts = {d: math.prod(sizes[m] for m, e in zip(axes, dims)
+                                  if e == d) for d in dims}
+            padded = math.prod(-(-arg.shape[d] // n) * n / arg.shape[d]
+                               for d, n in parts.items())
+            spec = _with_placements(have, place)
+            offered.append((padded, OpSpec(
+                output_specs=spec, input_specs=[spec],
+                redistribute_cost=[generate_redistribute_costs(arg, spec)])))
+        offered.sort(key=lambda o: o[0])
+        return OpStrategy([s for _, s in offered] + list(out.strategies))
+    return strategy
 
 
 def _whole_pieces(reshape: Callable) -> Callable:

@@ -15,7 +15,8 @@ operand's batch, `take_rows` looks an embedding up on its split rows,
 `reduce_over` all-reduces a partial result, `contract` runs a batched
 product with its batch and heads kept split, `project` a layer's
 product with a weight split as GSPMD splits it, `aligned` moves a
-split to the mesh axis of the tensor it is multiplied with,
+split to the mesh axis of the tensor it is multiplied with, `moved_as`
+to the dimension the other operand splits on that axis,
 `partial_as` makes a whole tensor a partial sum to add to one,
 `placed_grads` gives a layer's weight gradients their weights' split
 as they are made, and `write_rows_` / `write_columns_` write a cache on
@@ -275,6 +276,21 @@ def aligned(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def moved_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`t`, to be combined elementwise with `like` (of `t`'s shape).  On
+    plain tensors it is `t`.  Over DTensors, on each mesh axis where both
+    split a dimension but not the same one, `t`'s split moves to `like`'s
+    (an all-to-all), as torch 2.13's strategy for the op moves its first
+    operand; torch 2.11's moves the second."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    places = [q if p.is_shard() and q.is_shard() and p.dim != q.dim else p
+              for p, q in zip(t.placements, like.placements)]
+    if places == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, places)
+
+
 def partial_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """`t`, to be added to `like`.  On plain tensors it is `t`.  Over
     DTensors, on each mesh axis where `like` is a partial sum and `t` is
@@ -340,6 +356,29 @@ class _AsPartial(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad.redistribute(grad.device_mesh, ctx.placements), None
+
+
+class _ShardsFirst(torch.autograd.Function):
+    """A DTensor as it is, whose gradient is placed as `held` one mesh
+    axis at a time: a partial sum is reduce-scattered on the axes where
+    `held` splits it, then all-reduced on the others, each all-reduce
+    moving a shard, where one redistribution may all-reduce the whole
+    first."""
+
+    @staticmethod
+    def forward(ctx, t, held):
+        ctx.held = held
+        return DTensor.from_local(t.to_local(), t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = grad.device_mesh
+        grad = grad.redistribute(mesh, [
+            q if p.is_partial() and q.is_shard() else p
+            for p, q in zip(grad.placements, ctx.held)])
+        return grad.redistribute(mesh, ctx.held), None
 
 
 class _SwapSplit(torch.autograd.Function):
@@ -450,16 +489,22 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     before use).  Where its rows are split, each rank looks up the ids
     its rows hold (zeros for the others) and the lookups are summed over
     the rows' axes, one all-reduce of the result: no rank holds the
-    whole table."""
+    whole table.  Where no axis splits its rows (a vocabulary the axis
+    does not divide) but the ids are split, each rank looks up its own
+    ids on the whole table, its gradient a partial sum
+    (`_take_whole_rows`)."""
     if not isinstance(table, DTensor):
         return table[ids]
     mesh = table.device_mesh
+    held = table.placements
     if table.numel() <= ids.numel() * table.shape[1]:
         table = table.redistribute(mesh, [
             Replicate() if p.is_shard() and p.dim != 0 else p
             for p in table.placements])
     if not is_split(table, 0) and not is_split(table, 1):
-        return table[ids]
+        if not any(is_split(ids, d) for d in range(ids.ndim)):
+            return table[ids]
+        return _take_whole_rows(table, ids, held)
     ids_p = [Replicate() if t.is_shard() else p
              for t, p in zip(table.placements, ids.placements)]
     out_p = [Shard(ids.ndim) if t.is_shard() and t.dim == 1 else p
@@ -477,6 +522,26 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if out_p == ids_p:
         return rows
     return rows.redistribute(mesh, ids.placements)
+
+
+def _take_whole_rows(table: DTensor, ids: DTensor, held) -> DTensor:
+    """`table[ids]` for a DTensor table every rank holds whole, gathered
+    from the placements `held`: each rank looks up its own ids on its
+    copy, and the result takes the ids' placements.  The table's
+    gradient is a partial sum over the mesh axes that split the ids
+    (whole where they are whole), reduce-scattered onto `held`'s split
+    first and then all-reduced over the other axes (`_ShardsFirst`), as
+    XLA reduces an embedding's partial sums; DTensor's own `index_put`
+    (the backward of `table[ids]`) gathers the gradient rows instead,
+    or, on torch 2.11, has no strategy for a table split on its last
+    dimension."""
+    local = _ShardsFirst.apply(table, held).to_local(grad_placements=[
+        Partial() if p.is_shard() else Replicate() for p in ids.placements])
+    rows = F.embedding(ids.to_local(), local)
+    shape = (*ids.shape, table.shape[1])
+    return DTensor.from_local(rows, table.device_mesh, ids.placements,
+                              run_check=False, shape=shape,
+                              stride=contiguous_stride(*shape))
 
 
 def contiguous_stride(*shape: int) -> Tuple[int, ...]:

@@ -44,11 +44,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (ACTIVATIONS, ParamSpec, apply_norm,
                                        first_tensor, logical_constraint,
-                                       norm_spec, placed_grads, project,
-                                       remat, stack_specs, take_rows,
-                                       token_positions, tree_index,
-                                       tree_unbind, write_columns_,
-                                       write_rows_)
+                                       moved_as, norm_spec, placed_grads,
+                                       project, remat, stack_specs,
+                                       take_rows, token_positions,
+                                       tree_index, tree_unbind,
+                                       write_columns_, write_rows_)
 from repro_torch.models.moe import moe_ffn
 
 REMAT_POLICIES = ("none", "save_boundaries", "full", "dots")
@@ -408,8 +408,12 @@ def _hymba_fused(x, p, cfg: ModelConfig, positions, *, window, theta,
         # placement, first.
         m_out = logical_constraint(m_out, rules, "batch", "seq", "act_embed")
 
-    fused = 0.5 * (attn._rms(a_flat, p["attn_out_norm"]["scale"])
-                   + attn._rms(m_out, p["mamba_out_norm"]["scale"]))
+    a_out = attn._rms(a_flat, p["attn_out_norm"]["scale"])
+    m_out = attn._rms(m_out, p["mamba_out_norm"]["scale"])
+    # Under sequence parallelism the attention heads' output is split on
+    # its channels and the Mamba heads' on the sequence: the sum takes
+    # the Mamba heads' split on either torch (`common.moved_as`).
+    fused = 0.5 * (moved_as(a_out, m_out) + m_out)
     out = torch.einsum("bse,ed->bsd", fused, p["fuse_out"])
     new_cache = None
     if cache is not None:

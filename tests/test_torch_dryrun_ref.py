@@ -61,11 +61,15 @@ their peaks in bands measured here, their all-gathers at most
 GATHER_BAND's upper end (the prefills on whole steps, STEP_HELD).
 hymba-1.5b's prefill and train steps are held at 4 layers (HYMBA), in
 a fixture and a reference child of their own, on whole steps, their
-scans counted by trip count with no collective in a trip.  The mini
-cells hold what the families move at mini size.
+scans counted by trip count with no collective in a trip; the train
+step's embedding gradient is reduce-scattered as a partial sum, no
+gradient row gathered (`dryrun.sites()`).  The mini cells hold what the
+families move at mini size.
 
 `python tests/test_torch_dryrun_ref.py --all` compares every runnable
-16x16 cell (ALL_LEFT_OUT is empty) outside this tier (`compare_all`).
+16x16 cell (ALL_LEFT_OUT is empty) outside this tier (`compare_all`);
+`--port-only` traces the port alone, with no jax (`trace_port`), and
+`--diff` sets two such traces (two torches') side by side.
 """
 import collections
 import dataclasses
@@ -83,13 +87,23 @@ from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import SHAPES
-from test_torch_dryrun import unread_bytes
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
 CELLS = (("gemma3-1b", "decode_32k"), ("mistral-large-123b", "decode_32k"),
          ("gemma3-1b", "prefill_32k"))
 INDEX_BYTES = 4
+# `--port-only --diff`: two traces of a cell agree where each figure is
+# within this share of the other's (chip_smoke.py's HOST_AGREE).
+HOST_AGREE = 0.01
+
+
+def unread_bytes(cfg, shape, mesh):
+    """`test_torch_dryrun.unread_bytes`, imported at the first call:
+    that module imports the reference's jax modules, which `main
+    --port-only` runs without."""
+    from test_torch_dryrun import unread_bytes as unread
+    return unread(cfg, shape, mesh)
 # Port over XLA, measured first (PERF.md §6; jax 0.9.0, torch
 # 2.13 on the CPU): traced all-gather 0.957 gemma3, 0.906 mistral per
 # layer; analytic 0.963 and 0.915.  Before the split cache was gathered
@@ -455,19 +469,20 @@ def _at_depth(arch):
 @pytest.fixture(scope="module")
 def hymba_records():
     """The reference's records of HYMBA at HYMBA_DEPTH, compiled in a
-    child started first, and the port's, traced meanwhile."""
+    child started first, and the port's, traced meanwhile under
+    `dryrun.sites()`, whose entries (one a trace) come third."""
     from concurrent.futures import ThreadPoolExecutor
 
     code = AT_DEPTH.format(changes=HYMBA_DEPTH) + REF.format(cells=HYMBA, multi_pod=False)
     with ThreadPoolExecutor(1) as pool:
         child = pool.submit(_child_json, code, HYMBA_TIMEOUT)
-        with pytest.MonkeyPatch.context() as patch:
+        with pytest.MonkeyPatch.context() as patch, dryrun.sites() as kept:
             patch.setattr(dryrun, "get_config", _at_depth)
             port = {f"{a}|{s}": dryrun.lower_cell(a, s, False)
                     for a, s in HYMBA}
         ref = child.result()
     assert isinstance(ref, dict), ref
-    return port, ref
+    return port, ref, kept
 
 
 @pytest.mark.parametrize("arch,shape", HYMBA)
@@ -476,12 +491,80 @@ def test_hymba_cell_against_xla(arch, shape, hymba_records):
     its REPAIRED_PEAK_BAND, the all-gather a step (STEP_HELD) at most
     GATHER_BAND[1] x XLA's as its step runs them; its scans count their
     trips, and no counted trip issues a collective."""
-    port, ref = hymba_records
+    port, ref, _ = hymba_records
     rec = port[f"{arch}|{shape}"]
     _held_against_xla(arch, shape, rec, ref[f"{arch}|{shape}"],
                       _at_depth(arch))
     assert rec["scan_trips_counted"] > 0
     assert not rec["scan_collectives"]
+
+
+def test_hymba_embedding_gradient_is_not_gathered(hymba_records):
+    """hymba's train step at HYMBA_DEPTH: its embedding table (32001
+    rows, which 16 does not divide) is gathered whole, and no all-gather
+    comes from the lookup's backward (`IndexBackward0`, DTensor's
+    `index_put`, gathered the gradient rows over the data axis: 419,430,400
+    B a microbatch): each rank's gradient is a partial sum,
+    reduce-scattered onto the table's columns (`models.common.take_rows`)."""
+    _, _, kept = hymba_records
+    train = [t for t in kept if t["kind"] == "train"]
+    assert train
+    for t in train:
+        gathers = [where for (kind, _, _, where) in t["collectives"]
+                   if kind == "all-gather"]
+        assert gathers
+        assert not [w for w in gathers
+                    if "IndexBackward" in w or "index_put" in w.lower()]
+        table = [n for (kind, _, shape, where), n in t["collectives"].items()
+                 if kind == "reduce-scatter" and shape == (32001, 100)
+                 and "Backward" in where]
+        assert sum(table) == 1      # once a microbatch, as it was gathered
+
+
+PORT_ONLY = textwrap.dedent("""
+    import runpy, sys
+    sys.argv = ["test_torch_dryrun_ref.py", *{argv!r}]
+    sys.path.insert(0, {tests!r})
+    runpy.run_path({script!r}, run_name="__main__")
+    print("jax imported:", any(m.split(".")[0] in ("jax", "jaxlib")
+                               for m in sys.modules))
+""")
+
+
+def test_port_only_traces_without_jax(tmp_path):
+    """`main --port-only` on one small cell, in a child as the card's
+    host runs it: no jax imported, and the JSON holds the torch, the mesh
+    and the cell's argument, alias and peak bytes and its collectives a
+    step, equal to `lower_cell`'s."""
+    path = tmp_path / "port.json"
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", PORT_ONLY.format(
+            argv=["gemma3-1b", "decode_32k", "--port-only", "--json",
+                  str(path)], tests=tests,
+            script=os.path.join(tests, "test_torch_dryrun_ref.py"))],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "jax imported: False"
+    with open(path) as f:
+        got = json.load(f)
+    assert set(got) == {"torch", "mesh", "cells"}
+    assert got["mesh"] == "16x16" and set(got["cells"]) == \
+        {"gemma3-1b|decode_32k"}
+    cell = got["cells"]["gemma3-1b|decode_32k"]
+    assert set(cell) == {"status", "argument_bytes", "alias_bytes", "peak",
+                         "collectives", "trace_s"}
+    rec = dryrun.lower_cell("gemma3-1b", "decode_32k", False)
+    mem = rec["memory"]
+    assert (cell["status"], cell["argument_bytes"], cell["alias_bytes"],
+            cell["peak"]) == ("OK", mem["argument_bytes"],
+                              mem["alias_bytes"], _peak(mem))
+    assert cell["collectives"] == {
+        k: v for k, v in rec["collectives_traced"].items() if k != "total"}
+    assert cell["collectives"]["all-gather"] > 0
+    assert not diff_traces(got, got)
 
 
 # `main --all`: the cells left out, with the reason (none).
@@ -491,6 +574,17 @@ PORT = textwrap.dedent("""
     from repro_torch.launch import dryrun
     print(json.dumps(dryrun.lower_cell({arch!r}, {shape!r}, {multi_pod})))
 """)
+
+
+def runnable_cells():
+    """Every runnable (arch, shape) of the production meshes but
+    ALL_LEFT_OUT, in the registry's order."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.shapes import cell_is_runnable
+
+    return [(a, s) for a in ARCH_IDS for s in SHAPES
+            if cell_is_runnable(get_config(a), SHAPES[s])[0]
+            and (a, s) not in ALL_LEFT_OUT]
 
 
 def compare_all(jobs, timeout, multi_pod=False):
@@ -505,14 +599,9 @@ def compare_all(jobs, timeout, multi_pod=False):
     the rows."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.configs import ARCH_IDS
-    from repro_torch.launch.shapes import cell_is_runnable
-
     mesh = make_production_mesh(multi_pod=multi_pod)
     name = "2x16x16" if multi_pod else "16x16"
-    cells = [(a, s) for a in ARCH_IDS for s in SHAPES
-             if cell_is_runnable(get_config(a), SHAPES[s])[0]
-             and (a, s) not in ALL_LEFT_OUT]
+    cells = runnable_cells()
 
     def one(cell):
         ref = _child_json(REF.format(cells=[cell], multi_pod=multi_pod),
@@ -563,6 +652,84 @@ def compare_all(jobs, timeout, multi_pod=False):
     return rows
 
 
+def trace_port(cells, jobs, timeout, multi_pod=False):
+    """`cells` traced by the port alone on the 16x16 mesh, or with
+    `multi_pod` the 2x16x16 one: its `lower_cell` in a child with
+    `timeout` seconds, `jobs` cells at a time, with no reference and no
+    jax (the card's host has none).  Returns {"torch", "mesh", "cells"}:
+    for each cell, keyed "arch|shape", its status and, where it is OK,
+    its argument, alias and peak bytes, each collective kind's bytes and
+    count a step (`collectives_traced`) and its trace seconds; a cell
+    whose child failed holds the failure's last line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    def one(cell):
+        rec = _child_json(PORT.format(arch=cell[0], shape=cell[1],
+                                      multi_pod=multi_pod), timeout)
+        if isinstance(rec, str):
+            return cell, {"status": "FAIL",
+                          "error": rec.strip().splitlines()[-1]}
+        if rec["status"] != "OK":
+            return cell, {"status": rec["status"]}
+        mem = rec["memory"]
+        return cell, {
+            "status": "OK", "argument_bytes": mem["argument_bytes"],
+            "alias_bytes": mem["alias_bytes"], "peak": _peak(mem),
+            "collectives": {k: v for k, v in
+                            rec["collectives_traced"].items()
+                            if k != "total"},
+            "trace_s": rec["lower_s"] + rec["compile_s"]}
+
+    out = {}
+    with ThreadPoolExecutor(jobs) as pool:
+        for (arch, shape), got in pool.map(one, cells):
+            out[f"{arch}|{shape}"] = got
+            gather = got.get("collectives", {}).get("all-gather", 0.0)
+            print(f"{arch} {shape}: {got['status']}"
+                  + (f", peak {got['peak']} B, all-gather {gather:.0f} B a "
+                     f"step, {got['trace_s']:.1f} s" if "peak" in got
+                     else f" {got.get('error', '')}"), flush=True)
+    return {"torch": torch.__version__,
+            "mesh": "2x16x16" if multi_pod else "16x16", "cells": out}
+
+
+def diff_traces(one, other):
+    """The cells of two `trace_port` records of one mesh (two torches'),
+    side by side: for each cell the argument, alias and peak bytes and
+    each collective kind's bytes a step, `other`'s over `one`'s, a
+    figure whose two differ by more than HOST_AGREE marked.  Prints a
+    markdown table and returns {cell: [what differs]}."""
+    print(f"| cell ({one['mesh']}) | peak B, torch {one['torch']} | "
+          f"torch {other['torch']} over it: peak, all-gather, all-reduce, "
+          f"reduce-scatter, all-to-all | differs by more than "
+          f"{HOST_AGREE:.0%} |\n|---|---|---|---|")
+    kinds = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+    found = {}
+    for cell in sorted(set(one["cells"]) | set(other["cells"])):
+        a, b = one["cells"].get(cell), other["cells"].get(cell)
+        if not (a and b and a["status"] == b["status"] == "OK"):
+            found[cell] = [f"status {a and a['status']} / "
+                           f"{b and b['status']}"]
+            print(f"| {cell} | {found[cell][0]} | | |")
+            continue
+        pairs = {k: (a[k], b[k]) for k in ("argument_bytes", "alias_bytes",
+                                           "peak")}
+        pairs.update({k: (a["collectives"].get(k, 0.0),
+                          b["collectives"].get(k, 0.0)) for k in kinds})
+        ratios = {k: (y / x if x else (1.0 if not y else float("inf")))
+                  for k, (x, y) in pairs.items()}
+        off = [f"{k} {pairs[k][0]:.0f} / {pairs[k][1]:.0f}"
+               for k, r in ratios.items() if abs(r - 1) > HOST_AGREE]
+        if off:
+            found[cell] = off
+        print(f"| {cell} | {a['peak']} | "
+              + ", ".join(f"{ratios[k]:.4f}" for k in ("peak", *kinds))
+              + f" | {'; '.join(off)} |")
+    return found
+
+
 def main(argv=None):
     """`python tests/test_torch_dryrun_ref.py ARCH SHAPE [N] [PATTERN]`:
     the reference's compiled cell on 16x16, or with `--mesh multi`
@@ -573,7 +740,12 @@ def main(argv=None):
     `python tests/test_torch_dryrun_ref.py --all [--mesh single|multi]
     [--jobs J] [--timeout S]`: `compare_all`, the port against the
     reference on every runnable cell of the 16x16 mesh (`single`, the
-    default) or the 2x16x16 one (`multi`)."""
+    default) or the 2x16x16 one (`multi`).
+    `python tests/test_torch_dryrun_ref.py --all [--mesh single|multi]
+    --port-only --json PATH` (or ARCH SHAPE for one cell): `trace_port`,
+    the port alone, no jax imported, its records written to PATH.
+    `python tests/test_torch_dryrun_ref.py --diff A.json B.json`:
+    `diff_traces` of two such records (two torches' traces)."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -585,7 +757,27 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--timeout", type=int, default=900)
     ap.add_argument("--mesh", choices=("single", "multi"), default="single")
+    ap.add_argument("--port-only", action="store_true")
+    ap.add_argument("--json", metavar="PATH")
+    ap.add_argument("--diff", nargs=2, metavar=("A", "B"))
     args = ap.parse_args(argv)
+    if args.diff:
+        records = []
+        for path in args.diff:
+            with open(path) as f:
+                records.append(json.load(f))
+        diff_traces(*records)
+        return
+    if args.port_only:
+        if not args.json or not (args.all or args.shape):
+            ap.error("--port-only needs --json PATH and --all or ARCH SHAPE")
+        cells = (runnable_cells() if args.all
+                 else [(args.arch, args.shape)])
+        got = trace_port(cells, args.jobs, args.timeout,
+                         args.mesh == "multi")
+        with open(args.json, "w") as f:
+            json.dump(got, f, indent=1)
+        return
     if args.all:
         compare_all(args.jobs, args.timeout, args.mesh == "multi")
         return

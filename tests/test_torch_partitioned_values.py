@@ -33,13 +33,20 @@ tensors in float32 (rtol = atol = 1e-5):
   letter, on different letters (the smaller moved by all-to-all) and on
   a contracted letter (a partial sum): the values and the operands'
   gradients; and a whole tensor added to a partial sum, made one
-  (`models.common.partial_as`), its value and gradients;
+  (`models.common.partial_as`), its value and gradients, and under a
+  strategy for `add` that follows the whole operand (torch 2.11's), the
+  partial sum kept (`launch.dryrun._partial_kept`), nothing reduced,
+  and a `silu` of a partial sum under one that all-reduces it,
+  reduce-scattered (`launch.dryrun._partial_scattered`);
 * a layer's products with a weight split on its input dimension
   (`models.common.project`): one token beside it (the weight kept
   split, the product all-reduced) and a batch split on the same axis
   (the weight gathered), values and gradients; an embedding lookup on a
   table that keeps its split columns (`models.common.take_rows`), its
-  value and the table's gradient; and a gemma3 layer
+  value and the table's gradient, and on a table of odd rows gathered
+  whole for a batch split on the same axis, its gradient a partial sum
+  reduce-scattered onto the columns' split (no gradient row gathered);
+  and a gemma3 layer
   (`models.transformer._layer_forward`) whose row-parallel outputs are
   reduced once before the sandwich norms, under the serving rules and
   under sequence parallelism;
@@ -333,6 +340,70 @@ def _contract_cases(rank, mesh):
                                    rtol=TOL, atol=TOL)
         torch.testing.assert_close(grad_share, want_grads[1][rank],
                                    rtol=TOL, atol=TOL)
+    # A partial sum added to a whole tensor under a strategy that
+    # follows the whole operand, replicating a partial sum (torch 2.11's
+    # for `add`): the dry run offers the partial sum kept too
+    # (`dryrun._partial_kept`), so the sum stays one, nothing
+    # all-reduced.
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import \
+        generate_redistribute_costs
+
+    def follow_whole(op_schema):
+        a = op_schema.args_schema[0]
+        have = a.strategies[0].output_spec
+        spec = DTensorSpec(mesh, tuple(Replicate() if p.is_partial() else p
+                                       for p in have.placements),
+                           tensor_meta=have.tensor_meta)
+        args = [x for x in op_schema.args_schema
+                if isinstance(x, OpStrategy)]
+        return OpStrategy([OpSpec(
+            output_specs=spec, input_specs=[spec] * len(args),
+            redistribute_cost=[generate_redistribute_costs(x, spec)
+                               for x in args])])
+
+    # And a silu of a partial sum under a strategy that all-reduces it
+    # (torch 2.11's): the dry run offers it reduce-scattered
+    # (`dryrun._partial_scattered`), one reduce-scatter.
+    propagator = DTensor._op_dispatcher.sharding_propagator
+    add, silu = torch.ops.aten.add.Tensor, torch.ops.aten.silu.default
+    kept = {op: propagator.op_strategy_funcs.get(op) for op in (add, silu)}
+    # torch 2.13 derives these ops' strategies from a single mesh axis's,
+    # before any other: set aside meanwhile.
+    single = {op: getattr(propagator, "op_single_dim_strategy_funcs",
+                          {}).pop(op, None) for op in (add, silu)}
+    propagator.op_strategy_funcs[add] = follow_whole
+    propagator.op_strategy_funcs[silu] = follow_whole
+    try:
+        a, shares = randn(3, 5), randn(2, 3, 5)
+        da = distribute_tensor(a, mesh, [Replicate()])
+        part = DTensor.from_local(shares[rank].clone(), mesh, [Partial()])
+        with dryrun.gspmd_choices(), CommDebugMode() as comm:
+            got = da + part
+        assert got.placements == (Partial(),)
+        assert not comm.get_comm_counts(), comm.get_comm_counts()
+        torch.testing.assert_close(got.full_tensor(), a + shares.sum(0),
+                                   rtol=TOL, atol=TOL)
+        shares = randn(2, 4, 6)
+        part = DTensor.from_local(shares[rank].clone(), mesh, [Partial()])
+        with dryrun.gspmd_choices(), CommDebugMode() as comm:
+            got = torch.nn.functional.silu(part)
+        assert got.placements == (Shard(0),)
+        counts = comm.get_comm_counts()
+        assert counts[c10d.reduce_scatter_tensor] == 1, counts
+        assert counts[c10d.all_reduce] == 0, counts
+        torch.testing.assert_close(
+            got.full_tensor(), torch.nn.functional.silu(shares.sum(0)),
+            rtol=TOL, atol=TOL)
+    finally:
+        for op in (add, silu):
+            if kept[op] is None:
+                propagator.op_strategy_funcs.pop(op, None)
+            else:
+                propagator.op_strategy_funcs[op] = kept[op]
+            if single[op] is not None:
+                propagator.op_single_dim_strategy_funcs[op] = single[op]
     return "contract"
 
 
@@ -378,6 +449,30 @@ def _layer_cases(rank, mesh):
     got = common.take_rows(split, distribute_tensor(ids, mesh, [Replicate()]))
     (grad,) = torch.autograd.grad(
         (got * distribute_tensor(up, mesh, [Replicate()])).sum(), [split])
+    torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(grad.full_tensor(), want_grad, rtol=TOL,
+                               atol=TOL)
+    assert grad.placements == (Shard(1),)
+    # A table smaller than its lookup, whose odd rows no axis splits, is
+    # gathered whole: each rank looks up its own rows of ids, and the
+    # table's gradient, a partial sum, is reduce-scattered onto its
+    # columns' split.
+    table = randn(5, 8)
+    ids = torch.from_numpy(rng.integers(0, 5, (4, 3)))
+    whole = table.clone().requires_grad_(True)
+    want = common.take_rows(whole, ids)
+    up = randn(*want.shape)
+    (want_grad,) = torch.autograd.grad((want * up).sum(), [whole])
+    split = distribute_tensor(table, mesh, [Shard(1)]).requires_grad_(True)
+    got = common.take_rows(split, distribute_tensor(ids, mesh, [Shard(0)]))
+    assert got.placements == (Shard(0),)
+    with CommDebugMode() as comm:
+        (grad,) = torch.autograd.grad(
+            (got * distribute_tensor(up, mesh, [Shard(0)])).sum(), [split])
+    counts = comm.get_comm_counts()
+    # No gradient row gathered: one reduce-scatter of the partial sum.
+    assert counts[c10d.all_gather_into_tensor] == 0, counts
+    assert counts[c10d.reduce_scatter_tensor] == 1, counts
     torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
     torch.testing.assert_close(grad.full_tensor(), want_grad, rtol=TOL,
                                atol=TOL)
