@@ -122,7 +122,9 @@ Phases, each fatal on failure:
      skipped), the nine 16x16 cells whose partitioned trace once failed
      (REPAIRED_CELLS: the MoE, rwkv6 and whisper cells; a child
      started before phase 9, so its host time overlaps phases 9-11; 9
-     OK), a traced cell's process leaving CUDA uninitialised, and
+     OK; deepseek-v2-lite-16b train_4k's traced all-reduce a step within
+     HOST_AGREE of the figure traced on torch 2.13, HOST_ALL_REDUCE), a
+     traced cell's process leaving CUDA uninitialised, and
      `python -m repro_torch.launch.roofline --in-dir build/dryrun` (8
      rows); (d) the quickstart's entry point on the card, rst_read's
      launches counted (added to its entry in the kernels line) and its
@@ -2974,6 +2976,16 @@ HOST_ALL_GATHER = {("qwen2-moe-a2.7b", "train_4k"): 67_586_752_512,
 # card's torch traces.
 HOST_ALL_GATHER_MULTI = {("starcoder2-7b", "train_4k"): 89_766_494_208,
                          ("qwen2-moe-a2.7b", "train_4k"): 33_944_764_416}
+# 11c: traced all-reduce bytes a whole step that the card's host must
+# reproduce within HOST_AGREE, as this figure was traced on another host
+# and torch (`lower_cell(arch, shape, False)`, torch 2.13 on the CPU):
+# deepseek's routing sort's backward keeps its scatter a partial sum on
+# either torch, reduced once by the softmax's backward
+# (`dryrun._scatter_strategy`; torch 2.13's own strategy all-reduced the
+# zeros it scatters into too, 1,234,108,464 B), and its MoE layers' aux
+# losses, means over split routing groups, are added up as partial
+# means (`dryrun._partial_kept`; torch 2.11's `add` all-reduced each).
+HOST_ALL_REDUCE = {("deepseek-v2-lite-16b", "train_4k"): 797_900_848}
 HOST_AGREE = 0.01
 # 11c: the 16x16 cells whose partitioned trace once failed (the MoE
 # dispatch over split groups, rwkv6's views of split dimensions,
@@ -3465,6 +3477,26 @@ def quickstart_on_card(smi):
     return launches
 
 
+def repaired_on_torch(records) -> None:
+    """11c: the traced all-reduce a step of each HOST_ALL_REDUCE cell in
+    `records` (REPAIRED_CHILD's, keyed "arch|shape|mesh") within
+    HOST_AGREE of the figure traced on torch 2.13."""
+    import torch
+
+    for (arch, shape_name), host in HOST_ALL_REDUCE.items():
+        got = records[f"{arch}|{shape_name}|16x16"][
+            "collectives_traced"].get("all-reduce", 0.0)
+        if abs(got / host - 1) > HOST_AGREE:
+            fail(f"11c {arch} {shape_name} (16x16): traced all-reduce "
+                 f"{got:.0f} bytes a step on this host's torch "
+                 f"{torch.__version__}, not within {HOST_AGREE:.0%} of the "
+                 f"{host} bytes traced on torch 2.13")
+        print(f"11c {arch} {shape_name} (16x16): traced all-reduce "
+              f"{got:.0f} bytes a step on this host's torch "
+              f"{torch.__version__}, {got / host:.6f} x the {host} bytes "
+              f"traced on torch 2.13 (within {HOST_AGREE:.0%})")
+
+
 def launch_layer(smi, repaired, rank0=()):
     """Phase 11: the launch layer, the dry run and the analytic report,
     and the quickstart (see the module docstring); `repaired` is the
@@ -3501,6 +3533,8 @@ def launch_layer(smi, repaired, rank0=()):
         for line in out.splitlines():
             if line.startswith("[OK"):
                 print(f"11c   {line}")
+        if started is repaired:
+            repaired_on_torch(json.loads(out.strip().splitlines()[-1]))
         where = ("from phase 9 on, beside phases 9-11" if started is repaired
                  else "beside 11a-b, 11e")
         print(f"11c python -m repro_torch.launch.{what}: {m.group(0)} "

@@ -278,14 +278,17 @@ def gspmd_choices():
     that mesh axis), and `flip` (a cumulative sum's backward), which
     torch 2.11 has no strategy for, has one here (`_flip_strategy`).
 
-    A `scatter` (a sort's backward) keeps the split of a dimension it
-    does not write along (`_scatter_strategy`, torch 2.13's own), so the
-    trace does not depend on the torch: torch 2.11's strategy
-    replicates every operand.  Likewise an `add` of a partial sum and a
-    whole tensor may stay a partial sum (`_partial_kept`), and a `silu`
-    of a partial sum may reduce-scatter it (`_partial_scattered`), as
-    torch 2.13's strategies offer: torch 2.11's all-reduce the partial
-    sum.
+    A `scatter` (a sort's backward) has a strategy of its own, neither
+    torch's (`_scatter_strategy`): it keeps the split of a dimension it
+    does not write along, as torch 2.13's does (torch 2.11's replicates
+    every operand), and it keeps a partial-sum input and source a
+    partial sum, which neither does (torch 2.13's sort backward
+    scatters a partial gradient into zeros made from it, a partial sum
+    too, and its own strategy would all-reduce both).  Likewise an `add`
+    of a partial sum or mean and a whole tensor, or of partial sums over
+    different axes, may stay partial (`_partial_kept`), and a `silu` of
+    a partial sum may reduce-scatter it (`_partial_scattered`), as torch
+    2.13's strategies offer: torch 2.11's reduce the partial operand.
 
     `_select_min_cost_strategy`, the strategies of `view`,
     `_unsafe_view`, `flip` and `scatter`, `shard_dim_alltoall` and the
@@ -500,35 +503,73 @@ def _scatter_strategy(op_schema):
     """`scatter`'s strategy (the backward of the routing's sort): a
     dimension other than the one it writes along may stay split where
     the input, the index and a tensor source all have its size, each
-    device scattering into its own part; or every operand replicated.
-    torch 2.13's own; torch 2.11 offers only the second, and would
-    gather each routing group's (T, E) index and source."""
-    from torch.distributed.tensor._op_schema import OpStrategy
-    from torch.distributed.tensor._ops.utils import \
-        expand_to_full_mesh_op_strategy
+    device scattering into its own part; or every operand replicated,
+    as torch 2.13's strategy offers (torch 2.11's offers only the
+    second, and would gather each routing group's (T, E) index and
+    source).  And, on each mesh axis where the input and a tensor source
+    are the same partial sum, that sum kept: the index replicated there,
+    each rank scattering its share, no collective.  `scatter(self, dim,
+    index, src)` is linear in (self, src) taken together when every rank
+    holds the same index, so the ranks' outputs sum to the scatter of
+    the sums.  Neither torch offers it: torch 2.13's sort backward
+    scatters the partial gradient of the sorted values into zeros made
+    from it (`new_zeros`, a partial sum too), and would all-reduce both.
+    A `scatter.value` (the sum would hold the value once a rank) and a
+    partial input with a whole source are not offered it."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy, generate_redistribute_costs)
 
     src, dim, index = op_schema.args_schema[:3]
     shape = src.shape
     dim %= len(shape)
-    shapes = [index.shape] + [a.shape for a in op_schema.args_schema[3:4]
-                              if isinstance(a, OpStrategy)]
+    source = [a for a in op_schema.args_schema[3:4]
+              if isinstance(a, OpStrategy)]
+    shapes = [index.shape] + [a.shape for a in source]
     n = 2 + len(shapes)                # output, input, index[, source]
     options = [[Replicate()] * n] + [
         [Shard(d)] * n for d in range(len(shape))
         if d != dim and all(len(s) == len(shape) and s[d] == shape[d]
                             for s in shapes)]
-    return expand_to_full_mesh_op_strategy(
-        src.mesh, op_schema, options, inplace_op=op_schema.is_inplace_op())
+    specs = expand_to_full_mesh_op_strategy(src.mesh, op_schema,
+                                            options).strategies
+    have = [a.strategies[0].output_spec.placements for a in (src, *source)]
+    axes = {m for m, (p, *q) in enumerate(zip(*have))
+            if q == [p] and p.is_partial() and p.reduce_op == "sum"}
+
+    def kept(s):
+        return _with_placements(s, [have[0][m] if m in axes else p
+                                    for m, p in enumerate(s.placements)])
+    offered = []
+    for spec in specs if axes else ():
+        ins = spec.input_specs
+        if not all(s.placements[m].is_replicate() for s in ins
+                   for m in axes):
+            continue
+        ins = [s if i == 1 else kept(s) for i, s in enumerate(ins)]
+        offered.append(OpSpec(
+            output_specs=kept(spec.output_spec), input_specs=ins,
+            redistribute_cost=[generate_redistribute_costs(a, s)
+                               for a, s in zip((src, index, *source), ins)]))
+    specs = offered + specs
+    if op_schema.is_inplace_op():       # the input's placements kept
+        specs = [s for s in specs if s.output_spec.placements ==
+                 s.input_specs[0].placements == have[0]]
+    return OpStrategy(specs)
 
 
 def _partial_kept(add: Callable) -> Callable:
     """`add`, a pointwise strategy that follows one operand, made to
     offer too, on each mesh axis where one operand of two is a partial
-    sum and the other is whole, the partial sum kept: the whole operand
-    made a partial sum (each rank keeps its share, no collective) and
-    the output one, as torch 2.13's strategy offers, where torch 2.11's
-    follows the whole operand and all-reduces the partial sum (a
-    gradient accumulated from a whole and a partial part)."""
+    sum or mean and the other is whole, the partial one kept: the whole
+    operand made a partial sum (each rank keeps its share) or mean (each
+    rank keeps it whole), no collective, and the output one, as torch
+    2.13's strategy offers, where torch 2.11's follows the whole operand
+    and all-reduces the partial one (a gradient accumulated from a whole
+    and a partial part; the MoE layers' aux losses, each a mean over
+    split routing groups, added up), or follows one operand and reduces
+    the other's partial sum on the axes the first holds whole (a global
+    norm's squares, partial sums over different axes, added up)."""
     from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
     from torch.distributed.tensor._ops.utils import \
         generate_redistribute_costs
@@ -539,22 +580,23 @@ def _partial_kept(add: Callable) -> Callable:
         if len(args) != 2 or len({a.shape for a in args}) != 1:
             return out
         have = [a.strategies[0].output_spec.placements for a in args]
-        axes = {m for m, (p, q) in enumerate(zip(*have))
-                if p.is_partial() != q.is_partial()
-                and (p if p.is_partial() else q).reduce_op == "sum"
-                and (q if p.is_partial() else p).is_replicate()}
-        if not axes:
+        parts = {m: p if p.is_partial() else q
+                 for m, (p, q) in enumerate(zip(*have))
+                 if p.is_partial() != q.is_partial()
+                 and (p if p.is_partial() else q).reduce_op in ("sum", "avg")
+                 and (q if p.is_partial() else p).is_replicate()}
+        if not parts:
             return out
-        part = next(p for p in (*have[0], *have[1]) if p.is_partial())
 
         def partial(s):
-            return _with_placements(s, [part if m in axes else p
+            return _with_placements(s, [parts.get(m, p)
                                         for m, p in enumerate(s.placements)])
         kept = []
         for spec in out.strategies:
             ins = spec.input_specs
             if ins is None or not all(
-                    s.placements[m].is_replicate() for s in ins for m in axes):
+                    s.placements[m] in (Replicate(), parts[m])
+                    for s in ins for m in parts):
                 continue
             ins = [partial(s) for s in ins]
             kept.append(OpSpec(

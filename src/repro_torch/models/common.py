@@ -489,10 +489,12 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     before use).  Where its rows are split, each rank looks up the ids
     its rows hold (zeros for the others) and the lookups are summed over
     the rows' axes, one all-reduce of the result: no rank holds the
-    whole table.  Where no axis splits its rows (a vocabulary the axis
-    does not divide) but the ids are split, each rank looks up its own
-    ids on the whole table, its gradient a partial sum
-    (`_take_whole_rows`)."""
+    whole table.  Either way the table's gradient is a partial sum over
+    the axes that split the ids and hold the table whole, each rank's
+    holding its own ids' rows.  Where no axis splits its rows (a
+    vocabulary the axis does not divide) but the ids are split, each
+    rank looks up its own ids on the whole table, its gradient a
+    partial sum (`_take_whole_rows`)."""
     if not isinstance(table, DTensor):
         return table[ids]
     mesh = table.device_mesh
@@ -510,7 +512,9 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out_p = [Shard(ids.ndim) if t.is_shard() and t.dim == 1 else p
              for t, p in zip(table.placements, ids_p)]
     ids_l = ids.redistribute(mesh, ids_p).to_local()
-    local = table.to_local()
+    local = table.to_local(grad_placements=[
+        Partial() if t.is_replicate() and i.is_shard() else t
+        for t, i in zip(table.placements, ids_p)])
     at = ids_l - compute_local_shape_and_global_offset(
         table.shape, mesh, table.placements)[1][0]
     inside = (at >= 0) & (at < local.shape[0])

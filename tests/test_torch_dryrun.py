@@ -57,6 +57,7 @@ from repro_torch.models.common import (DEFAULT_RULES, ParamSpec,
                                        init_params, param_shapes,
                                        tree_leaves, tree_unflatten)
 from repro_torch.models.registry import build
+from test_torch_dryrun_ref import REDUCTIONS, executed_collectives
 from test_torch_launch import RefMesh, ref_shape_rules
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -273,7 +274,8 @@ REF_MINI = textwrap.dedent("""
                       "bytes_accessed": float(ca.get("bytes accessed",
                                                      0.0))}},
             "collectives": collective_bytes(hlo),
-            "largest": largest(hlo)}}
+            "largest": largest(hlo),
+            "hlo": hlo if shape.kind == "train" else None}}
 
     for arch, cells in {cells!r}.items():
         out[arch] = {{}}
@@ -349,7 +351,8 @@ HELD_TO_REF = {
     "gemma3-1b": {"train": HELD, "prefill": HELD + ("flops",),
                   "decode": HELD + ("flops",), "decode_chunked": HELD},
     "rwkv6-7b": {cell: HELD for cell in MINI_CELLS},
-    "deepseek-v2-lite-16b": {cell: HELD for cell in MINI_CELLS},
+    "deepseek-v2-lite-16b": {**{cell: HELD for cell in MINI_CELLS},
+                             "train": HELD + ("reductions",)},
     "qwen2-moe-a2.7b": {cell: HELD for cell in MINI_CELLS},
     "whisper-small": {cell: HELD for cell in MINI_CELLS}}
 # Cells whose "gather" check holds a band of their own, measured first:
@@ -373,6 +376,18 @@ GATHER_TO_REF_OF = {("gemma3-1b", "train"): (0.35, 0.5),
                     ("gemma3-1b", "decode"): (0.35, 0.5),
                     ("rwkv6-7b", "train"): (0.35, 0.5),
                     ("whisper-small", "train"): (0.35, 0.5)}
+# The "reductions" check: a train cell's traced all-reduce and
+# reduce-scatter bytes together over XLA's all-reduce and reduce-scatter
+# as its step runs them (`executed_collectives`), in a band measured
+# first: deepseek-v2-lite 0.3974 (1,634,640 B against 4,113,260).  It was
+# 0.3914 (1,610,064 B) while the routing sort's backward all-reduced its
+# scatter's input and source, zeros and a partial sum, in each MoE layer
+# (`dryrun._scatter_strategy` keeps both partial and the softmax's
+# backward reduces the sum once: -8,192 B) and while the embedding's
+# gradient, a partial sum over the axes that split the ids, went
+# unreduced (`models.common.take_rows`: +32,768 B, one all-reduce over
+# "pod" and one reduce-scatter over "data" a step).
+REDUCE_TO_REF_OF = {("deepseek-v2-lite-16b", "train"): (0.395, 0.41)}
 
 
 @pytest.fixture(scope="module")
@@ -501,10 +516,11 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     alias bytes as the two programs hold them; and the checks of
     HELD_TO_REF: no all-gather larger than XLA's largest, the traced
     all-gather bytes within GATHER_TO_REF of XLA's (GATHER_TO_REF_OF
-    where a cell has its own), and on the cells with
+    where a cell has its own), on the cells with
     no loop in XLA's program the FLOPs within FLOPS_TO_REF (or
-    FLOPS_TO_REF_OF).  Each cell
-    prints the whole comparison."""
+    FLOPS_TO_REF_OF), and on deepseek's train cell the traced all-reduce
+    and reduce-scatter bytes within REDUCE_TO_REF_OF of XLA's as its step
+    runs them.  Each cell prints the whole comparison."""
     port, ref = mini_records
     (rec, largest), xla = port[arch][cell], ref[arch][cell]
     kind = MINI_CELLS[cell][0][3]
@@ -529,13 +545,18 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
         mem["temp_bytes"] - mem["alias_bytes"]
     ref_peak = x["argument_bytes"] + x["output_bytes"] + x["temp_bytes"] \
         - x["alias_bytes"]
+    reduced = sum(rec["collectives_traced"].get(k, 0.0) for k in REDUCTIONS)
+    ref_reduced = (sum(executed_collectives(xla["hlo"]).get(k, 0)
+                       for k in REDUCTIONS) if xla["hlo"] else float("nan"))
     print(f"{arch} {cell}: all-gather {gather:.0f} B, XLA's {ref_gather:.0f}"
           f" (ratio {gather / ref_gather:.3f}); all-to-all "
           f"{rec['collectives_traced'].get('all-to-all', 0.0):.0f} B, XLA's "
           f"{xla['collectives'].get('all-to-all', 0.0):.0f}; largest "
           f"all-gather {big} B, XLA's {ref_big}; flops {flops:.4e}, XLA's "
           f"{ref_flops:.4e} (ratio {flops / ref_flops:.3f}); peak {peak} "
-          f"B, XLA's {ref_peak} (ratio {peak / ref_peak:.3f})")
+          f"B, XLA's {ref_peak} (ratio {peak / ref_peak:.3f}); reductions "
+          f"{reduced:.0f} B, XLA's as its step runs them {ref_reduced:.0f}"
+          f" (ratio {reduced / ref_reduced:.4f})")
     held = HELD_TO_REF.get(arch, {}).get(cell, ())
     if "largest" in held:
         assert 0 < big <= ref_big
@@ -545,6 +566,9 @@ def test_mini_cell_against_xla(arch, cell, mini_records):
     if "flops" in held:
         lo, hi = FLOPS_TO_REF_OF.get((arch, cell), FLOPS_TO_REF)
         assert lo <= flops / ref_flops <= hi
+    if "reductions" in held:
+        lo, hi = REDUCE_TO_REF_OF[arch, cell]
+        assert lo <= reduced / ref_reduced <= hi
 
 
 def test_deepseek_prefill_on_a_split_slot_cache():
@@ -846,6 +870,42 @@ def test_a_move_between_split_dimensions_is_an_all_to_all():
     assert tuple(moved.to_local().shape) == (8, 6, 6)
     assert dict(tr.collectives) == {"all-to-all": 8 * 12 * 6 * 4 // 2,
                                     "all-to-all_count": 1}
+
+
+def test_scatter_keeps_a_partial_sum_with_a_shared_index():
+    """Inside `gspmd_choices`, a `scatter` of a partial-sum source into a
+    partial-sum input, with an index every rank holds (the routing sort's
+    backward on torch 2.13: the sorted values' partial gradient scattered
+    into zeros made from it), stays a partial sum with no collective, in
+    place or not (`dryrun._scatter_strategy`).  A `scatter.value` (the sum
+    would hold the value once a rank), a partial input with a whole
+    source, and partial maxima are reduced first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = make_mesh((2, 2), ("data", "model"))
+    part, whole, high = ([p, Replicate()] for p in
+                         (Partial(), Replicate(), Partial("max")))
+
+    def scattered(into, source, in_place=False):
+        def placed(places, dtype=torch.float32):
+            return DTensor.from_local(
+                torch.empty(4, 8, 6, dtype=dtype, device="meta"), dm, places,
+                run_check=False)
+        index = placed(whole, torch.int64)
+        src = 1.0 if source is None else placed(source)
+        tr = dryrun._Trace()
+        with tr:
+            out = (placed(into).scatter_ if in_place
+                   else placed(into).scatter)(-1, index, src)
+        return out.placements, sum(tr.collectives.get(f"{k}_count", 0)
+                                   for k in ("all-reduce", "reduce-scatter"))
+
+    with dryrun.one_rank(mesh) as dm, dryrun.gspmd_choices():
+        kept = [scattered(part, part), scattered(part, part, in_place=True)]
+        reduced = [scattered(part, None), scattered(part, whole),
+                   scattered(high, high)]
+    assert kept == [((Partial(), Replicate()), 0)] * 2
+    for places, n in reduced:
+        assert not places[0].is_partial() and n >= 1
 
 
 def test_a_flatten_of_an_unevenly_cut_dimension_is_gathered_first():

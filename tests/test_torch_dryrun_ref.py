@@ -569,6 +569,8 @@ def test_port_only_traces_without_jax(tmp_path):
 
 # `main --all`: the cells left out, with the reason (none).
 ALL_LEFT_OUT = {}
+# The collectives that reduce a partial sum (a train step's gradients).
+REDUCTIONS = ("all-reduce", "reduce-scatter")
 PORT = textwrap.dedent("""
     import json
     from repro_torch.launch import dryrun
@@ -591,12 +593,14 @@ def compare_all(jobs, timeout, multi_pod=False):
     """Every runnable cell of the 16x16 mesh, or with `multi_pod` the
     2x16x16 one, but ALL_LEFT_OUT: the reference's `lower_cell` in a
     child with `timeout` seconds, then the port's in another, `jobs`
-    cells at a time; prints each cell's peak and all-gather a step
-    (XLA's as its step runs them, `executed_collectives`), port / XLA,
-    a cell above GATHER_BAND[1] on either marked, then one JSON line a
-    cell with the bytes (its all-to-all too, and its argument bytes as
-    the port holds them less `unread_bytes` beside XLA's), and returns
-    the rows."""
+    cells at a time; prints each cell's peak, and its all-gather,
+    all-reduce and reduce-scatter a step (XLA's as its step runs them,
+    `executed_collectives`), port / XLA, with the ratio of the two
+    reductions' sum ("reductions": DTensor may reduce-scatter and gather
+    where XLA all-reduces), a cell above GATHER_BAND[1] on peak,
+    all-gather or reductions marked, then one JSON line a cell with the
+    bytes (its all-to-all too, and its argument bytes as the port holds
+    them less `unread_bytes` beside XLA's), and returns the rows."""
     from concurrent.futures import ThreadPoolExecutor
 
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -618,34 +622,44 @@ def compare_all(jobs, timeout, multi_pod=False):
         spec = SHAPES[cell[1]]
         unread = 0 if spec.kind == "train" else unread_bytes(
             get_config(cell[0]), spec, mesh)[0]
+        got = {"peak": _peak(port["memory"]),
+               "ref_peak": _peak(xla["memory"])}
+        for kind in (*REDUCTIONS, "all-gather", "all-to-all"):
+            got[kind] = traced.get(kind, 0.0)
+            got[f"ref_{kind}"] = moved.get(kind, 0)
+        got["reductions"] = sum(got[k] for k in REDUCTIONS)
+        got["ref_reductions"] = sum(got[f"ref_{k}"] for k in REDUCTIONS)
         return cell, {
-            "peak": _peak(port["memory"]), "ref_peak": _peak(xla["memory"]),
-            "all-gather": traced.get("all-gather", 0.0),
-            "ref_all-gather": moved.get("all-gather", 0),
-            "all-to-all": traced.get("all-to-all", 0.0),
-            "ref_all-to-all": moved.get("all-to-all", 0),
-            "argument_bytes": port["memory"]["argument_bytes"] - unread,
-            "ref_argument_bytes": xla["memory"]["argument_bytes"]}
+            **got, "argument_bytes": port["memory"]["argument_bytes"]
+            - unread, "ref_argument_bytes": xla["memory"]["argument_bytes"]}
 
-    print(f"| cell ({name}) | peak GiB, port / XLA (x) | all-gather GB a "
-          f"step, port / XLA (x) |\n|---|---|---|")
+    def ratio(got, kind):
+        mine, want = got[kind], got[f"ref_{kind}"]
+        return mine / want if want else 1.0 if not mine else float("inf")
+
+    kinds = ("all-gather", *REDUCTIONS)
+    print(f"| cell ({name}) | peak GiB, port / XLA (x) | "
+          + " | ".join(f"{k} GB a step, port / XLA (x)" for k in kinds)
+          + " | reductions (x) |\n|---|---|---|---|---|---|")
     rows = []
     with ThreadPoolExecutor(jobs) as pool:
         for (arch, shape), got in pool.map(one, cells):
             rows.append((arch, shape, got))
             if isinstance(got, str):
-                print(f"| {arch} {shape} | {got} | |", flush=True)
+                print(f"| {arch} {shape} | {got} | | | | |", flush=True)
                 continue
             peak, ref_peak = got["peak"], got["ref_peak"]
-            gather, want = got["all-gather"], got["ref_all-gather"]
-            ratio = gather / want if want else float("inf")
-            above = max(peak / ref_peak, ratio) > GATHER_BAND[1]
+            above = max(peak / ref_peak, ratio(got, "all-gather"),
+                        ratio(got, "reductions")) > GATHER_BAND[1]
             print(f"| {arch} {shape}{' (above)' if above else ''} | "
                   f"{peak / 2**30:.3f} / {ref_peak / 2**30:.3f} "
-                  f"({peak / ref_peak:.3f}) | {gather / 1e9:.4g} / "
-                  f"{want / 1e9:.4g} ({ratio:.3f}) |", flush=True)
+                  f"({peak / ref_peak:.3f}) | "
+                  + " | ".join(f"{got[k] / 1e9:.4g} / "
+                               f"{got[f'ref_{k}'] / 1e9:.4g} "
+                               f"({ratio(got, k):.3f})" for k in kinds)
+                  + f" | {ratio(got, 'reductions'):.3f} |", flush=True)
     for cell, why in ALL_LEFT_OUT.items():
-        print(f"| {' '.join(cell)} | left out: {why} | |")
+        print(f"| {' '.join(cell)} | left out: {why} | | | | |")
     for arch, shape, got in rows:
         if not isinstance(got, str):
             print(json.dumps({"cell": f"{arch}|{shape}|{name}", **got}))

@@ -56,13 +56,19 @@ tensors in float32 (rtol = atol = 1e-5):
 
 Four gloo processes form a ("data", "model") mesh of (2, 2) for a
 layer's product whose weight's split moves from "data" to "model"
-(`models.common.project`), against the gathered weight's product; and
-for rwkv6's one-token step under the long_500k rules (`models.ssm`),
-its products' partial sums all-reduced and nothing gathered.
+(`models.common.project`), against the gathered weight's product; for
+rwkv6's one-token step under the long_500k rules (`models.ssm`), its
+products' partial sums all-reduced and nothing gathered; and for
+deepseek-v2-lite's smoke() train step under the train rules, a routing
+group a data rank, in float64: the loss and every gradient, the routing
+sort's backward keeping its scatter a partial sum
+(`launch.dryrun._scatter_strategy`) and the embedding's gradient a
+partial sum over the ids' split (`models.common.take_rows`).
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
 """
+import functools
 import os
 import time
 import traceback
@@ -77,6 +83,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.launch import dryrun, train
 from repro_torch.launch.mesh import placements
@@ -561,6 +568,91 @@ def _prefill_cases(rank, mesh):
     return "prefill"
 
 
+class _Scattered(TorchDispatchMode):
+    """Keeps, for each `scatter` of DTensors, the placements of its input,
+    its source and its output."""
+
+    def __init__(self):
+        super().__init__()
+        self.placements = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in (torch.ops.aten.scatter,
+                                   torch.ops.aten.scatter_) \
+                and len(args) > 3 and all(isinstance(a, DTensor)
+                                          for a in (out, args[0], args[3])):
+            self.placements.append((args[0].placements, args[3].placements,
+                                    out.placements))
+        return out
+
+
+def _train_cases(rank, mesh):
+    """deepseek's smoke() train step (`launch.train.step_grads`) on a
+    ("data", "model") mesh, its parameters split as the train rules split
+    them (the routed experts over "model"), its batch of two routing
+    groups split over "data", inside `gspmd_choices` as the dry run runs
+    it, against the plain step, both in float64: the loss and every
+    gradient.  (The process is the test's own: its MoE layers route
+    groups of 256 tokens.)  The routing sort's backward scatters the
+    sorted values' gradient, a partial sum over "model", into zeros
+    made from it (on
+    torch 2.13): the scatter keeps the partial sum, on every axis where
+    its input and source are one (`launch.dryrun._scatter_strategy`), and
+    the softmax's backward reduces it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import ShapeSpec, batch_shardings
+    from repro_torch.models.common import init_params
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build
+    torch.set_num_threads(1)        # four ranks share the host's cores
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    model = build(cfg)
+    specs = model.param_specs()
+    master = init_params(torch.Generator().manual_seed(12), specs,
+                         dtype=torch.float64, device="cpu")
+    # Two sequences of 256 tokens, routed in groups of 256 (a group a
+    # data rank), as many tokens as the table has rows: the lookup
+    # gathers the table's columns, as a production train step does.
+    b, s = 2, cfg.vocab_size // 2
+    transformer.moe_ffn = functools.partial(moe.moe_ffn, group_size=s)
+    ids = torch.from_numpy(
+        np.random.default_rng(13).integers(0, cfg.vocab_size, (b, s + 1)))
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    shape = ShapeSpec("mini", s, b, "train")
+    rules = dryrun._shape_rules(train.make_rules(cfg, mesh), shape, mesh,
+                                cfg)
+    places = batch_shardings(cfg, shape, mesh, rules)
+    want_loss, want = train.step_grads(model, master, batch, None,
+                                       dtype=torch.float64)
+    split = common.tree_unflatten(master, [
+        distribute_tensor(t, mesh, sh.placements()) for t, sh in zip(
+            common.tree_leaves(master), common.tree_leaves(
+                dryrun._param_shardings(specs, rules, mesh)))])
+    assert any(isinstance(t, DTensor) and t.placements[0].is_shard()
+               for t in common.tree_leaves(split["layers"]["mlp"]))
+    with dryrun.gspmd_choices(), implicit_replication(), \
+            _Scattered() as scattered:
+        loss, grads = train.step_grads(
+            model, split, {k: distribute_tensor(v, mesh,
+                                                places[k].placements())
+                           for k, v in batch.items()}, rules,
+            dtype=torch.float64)
+    # torch 2.13 scatters into zeros made from the partial gradient (a
+    # partial sum too), torch 2.11 into whole zeros (a plain tensor).
+    for into, source, out in scattered.placements:
+        for p, q, o in zip(into, source, out):
+            assert o.is_partial() == (p.is_partial() and p == q), \
+                scattered.placements
+    torch.testing.assert_close(loss.full_tensor(), want_loss, rtol=TOL,
+                               atol=TOL)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(
+            g.full_tensor() if isinstance(g, DTensor) else g, w, rtol=TOL,
+            atol=TOL)
+    return "train"
+
+
 def _on_mesh(rank, store_path, out_dir, shape, names, cases):
     """`cases`, each called with (rank, mesh) in turn, as rank `rank` of
     gloo processes forming a CPU mesh of `shape` and axis `names`; writes
@@ -768,3 +860,13 @@ def _rwkv_rank(rank, store_path, out_dir):
 def test_rwkv6_one_token_step_gathers_no_activations(tmp_path):
     for rank, said in enumerate(_spawn(_rwkv_rank, 4, tmp_path)):
         assert said == "rwkv6", f"rank {rank}:\n{said}"
+
+
+def _train_rank(rank, store_path, out_dir):
+    _on_mesh(rank, store_path, out_dir, (2, 2), ("data", "model"),
+             [_train_cases])
+
+
+def test_deepseek_train_step_keeps_the_routing_gradient_partial(tmp_path):
+    for rank, said in enumerate(_spawn(_train_rank, 4, tmp_path)):
+        assert said == "train", f"rank {rank}:\n{said}"
