@@ -173,7 +173,9 @@ Phases, each fatal on failure:
      (REF_ALL_GATHER, REF_ALL_GATHER_MULTI), qwen2-moe's and hymba's
      whole steps' and the 2x16x16 cells' within HOST_AGREE of the
      figure traced on another torch (HOST_ALL_GATHER,
-     HOST_ALL_GATHER_MULTI), the traced all-to-all beside it, with
+     HOST_ALL_GATHER_MULTI), qwen2-moe's traced all-reduce a step on
+     2x16x16 likewise (HOST_ALL_REDUCE_MULTI), the traced all-to-all
+     beside it, with
      collectives_traced beside collectives and the host seconds, run
      after (b) while (c) goes on;
 then one JSON line of kernels, the nvidia-smi line, and the final JSON
@@ -2986,6 +2988,16 @@ HOST_ALL_GATHER_MULTI = {("starcoder2-7b", "train_4k"): 89_766_494_208,
 # losses, means over split routing groups, are added up as partial
 # means (`dryrun._partial_kept`; torch 2.11's `add` all-reduced each).
 HOST_ALL_REDUCE = {("deepseek-v2-lite-16b", "train_4k"): 797_900_848}
+# 11e: the same for RANK0_MULTI_CELLS on 2x16x16 (`lower_cell(arch,
+# shape, True)`, torch 2.13 on the CPU): qwen2-moe's gradients reduced
+# over pod x data.  Its train step routes whole groups on each rank, so
+# its experts' input is no partial sum; its decode step's is, over pod
+# and data, and `models.moe._experts_input` reduce-scatters it onto the
+# weights' split before the all-reduce over pod moves a shard
+# (`models.common.shards_first`; 8,198,656 B a step, where one
+# redistribution all-reduced the whole sum over pod first,
+# 63,494,656).
+HOST_ALL_REDUCE_MULTI = {("qwen2-moe-a2.7b", "train_4k"): 48_737_640_496}
 HOST_AGREE = 0.01
 # 11c: the 16x16 cells whose partitioned trace once failed (the MoE
 # dispatch over split groups, rwkv6's views of split dimensions,
@@ -3382,6 +3394,15 @@ def rank0_on_card(smi, children=(), repaired=None):
                  f"{traced.get('all-gather', 0.0):.0f} bytes a step on this "
                  f"host's torch {torch.__version__}, not within "
                  f"{HOST_AGREE:.0%} of the {host} bytes traced on torch 2.13")
+        host_reduce = (HOST_ALL_REDUCE_MULTI.get((arch, shape_name))
+                       if multi_pod else None)
+        reduced = traced.get("all-reduce", 0.0)
+        if host_reduce is not None and abs(reduced / host_reduce
+                                           - 1) > HOST_AGREE:
+            fail(f"11e {arch} {shape_name} ({name}): traced all-reduce "
+                 f"{reduced:.0f} bytes a step on this host's torch "
+                 f"{torch.__version__}, not within {HOST_AGREE:.0%} of the "
+                 f"{host_reduce} bytes traced on torch 2.13")
         print(f"11e {arch} {shape_name}, rank 0 of {name} "
               f"({rec['trace_mode']} partitioned trace, "
               f"{rec.get('n_micro', 1)} microbatch(es) on the host, one on "
@@ -3402,7 +3423,12 @@ def rank0_on_card(smi, children=(), repaired=None):
               f"{gather / ref:.4f} x the reference's XLA program's "
               f"{ref:.0f} (limit {GATHER_OVER_REF}), "
               f"all-to-all {traced.get('all-to-all', 0.0) / per:.0f} "
-              f"bytes a {unit}; scan trips counted "
+              f"bytes a {unit}"
+              + (f"; traced all-reduce {reduced:.0f} bytes a step, "
+                 f"{reduced / host_reduce:.6f} x the {host_reduce} bytes "
+                 f"traced on torch 2.13 (within {HOST_AGREE:.0%})"
+                 if host_reduce is not None else "")
+              + f"; scan trips counted "
               f"{rec['scan_trips_counted']} (their collectives "
               f"{rec['scan_collectives']}); "
               f"host {host_s:.3f} s to trace, {run_s:.3f} s to run on the "

@@ -850,19 +850,25 @@ class _Trace(TorchDispatchMode):
         held[0] -= 1
         if not held[0]:
             self.live -= held[1]
-            if self.holders.get(held[2]) is held:
-                del self.holders[held[2]]
+            self._forget(held)
+
+    def _forget(self, held: list) -> None:
+        if self.holders.get(held[2]) is held:
+            del self.holders[held[2]]
 
     def _hold(self, t: torch.Tensor, new: bool) -> None:
-        key = t.untyped_storage()._cdata
+        storage = t.untyped_storage()
+        key = storage._cdata
         held = self.holders.get(key)
         if new:
-            # A storage made at the address of one that is gone: a
-            # collective's result whose wait handed on another storage
+            # A collective's result whose wait hands on another storage
             # (the meta device's) keeps its record through the tensor
-            # the wait returned.
-            held = self.holders[key] = [0, t.untyped_storage().nbytes(),
-                                        key]
+            # the wait returned, but not its address: once the storage
+            # is freed the record leaves `holders`, so a storage that no
+            # counted op makes there later (the next such wait's) counts
+            # no view onto it.
+            held = self.holders[key] = [0, storage.nbytes(), key]
+            weakref.finalize(storage, self._forget, held)
             self.live += held[1]
             if self.sites is not None:
                 self.made[key] = (t.dtype, tuple(t.shape))

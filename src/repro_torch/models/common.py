@@ -358,12 +358,21 @@ class _AsPartial(torch.autograd.Function):
         return grad.redistribute(grad.device_mesh, ctx.placements), None
 
 
+def shards_first(t: DTensor, places) -> DTensor:
+    """`t` redistributed to `places` in two steps: its partial sums are
+    reduce-scattered first on the mesh axes where `places` splits them,
+    then the rest is placed (the other partial sums all-reduced, each
+    all-reduce moving a shard), where one redistribution may all-reduce
+    the whole tensor first."""
+    mesh = t.device_mesh
+    t = t.redistribute(mesh, [q if p.is_partial() and q.is_shard() else p
+                              for p, q in zip(t.placements, places)])
+    return t.redistribute(mesh, places)
+
+
 class _ShardsFirst(torch.autograd.Function):
-    """A DTensor as it is, whose gradient is placed as `held` one mesh
-    axis at a time: a partial sum is reduce-scattered on the axes where
-    `held` splits it, then all-reduced on the others, each all-reduce
-    moving a shard, where one redistribution may all-reduce the whole
-    first."""
+    """A DTensor as it is, whose gradient is placed as `held` by
+    `shards_first`."""
 
     @staticmethod
     def forward(ctx, t, held):
@@ -374,11 +383,7 @@ class _ShardsFirst(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        mesh = grad.device_mesh
-        grad = grad.redistribute(mesh, [
-            q if p.is_partial() and q.is_shard() else p
-            for p, q in zip(grad.placements, ctx.held)])
-        return grad.redistribute(mesh, ctx.held), None
+        return shards_first(grad, ctx.held), None
 
 
 class _SwapSplit(torch.autograd.Function):

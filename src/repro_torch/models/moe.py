@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.common import contract, partial_as
+from repro_torch.models.common import contract, partial_as, shards_first
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,12 +134,13 @@ def _experts_input(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     contracted split tokens it is a partial sum, reduced here once, as
     XLA's program reduces it: scattered onto D over the mesh axes that
     split the experts' weights `w` (E, D, F) on theirs (FSDP), so the
-    expert products keep those weights split, and all-reduced over the
-    other axes.  Not a partial sum each product reduces again, nor one
-    the backward gathers.  A plain tensor as it is."""
+    expert products keep those weights split, and then all-reduced over
+    the other axes, a shard at a time (`shards_first`).  Not a partial
+    sum each product reduces again, nor one the backward gathers.  A
+    plain tensor as it is."""
     if not isinstance(xe, DTensor):
         return xe
-    return xe.redistribute(xe.device_mesh, [
+    return shards_first(xe, [
         p if not p.is_partial() else
         Shard(3) if q.is_shard() and q.dim == 1 else Replicate()
         for p, q in zip(xe.placements, w.placements)])

@@ -21,7 +21,13 @@ the 16x16 cells (`_held_against_xla`):
   trips of the loops around it); deepseek-v2-lite's decode, which
   gathers its bf16 latent where XLA moves float32 keys and values by
   all-to-all, in MULTI_GATHER_ALONE_BAND, and with its all-to-all at
-  most GATHER_BAND[1] x XLA's.
+  most GATHER_BAND[1] x XLA's;
+* the traced all-reduce and reduce-scatter a step together at most
+  GATHER_BAND[1] x XLA's as its step runs them: deepseek-v2-lite's
+  decode reduces its experts' input, a partial sum over pod x data,
+  onto D over "data" first and then over "pod" a shard at a time
+  (`models.common.shards_first`), 0.418 x XLA's (3.230 while it
+  all-reduced the whole sum over "pod" first).
 
 `python tests/test_torch_dryrun_ref.py --all --mesh multi` compares
 every runnable 2x16x16 cell outside this tier (PERF.md §6).

@@ -367,7 +367,9 @@ def _held_against_xla(arch, shape, rec, xla, cfg, *,
     peak in its band of `peak_bands` (keyed by cell or arch), the
     all-gather as `gather_held`, `step_held` and `alone_bands` hold it
     (by default the 16x16 cells' REPAIRED_PEAK_BAND, GATHER_HELD,
-    STEP_HELD and GATHER_ALONE_BAND)."""
+    STEP_HELD and GATHER_ALONE_BAND), and on a cell held a step the
+    reductions (all-reduce and reduce-scatter) at most GATHER_BAND[1] x
+    XLA's as its step runs them."""
     assert rec["status"] == xla["status"] == "OK" and rec["partitioned"]
     assert rec["trace_scope"] == "device"
     mem, x = rec["memory"], xla["memory"]
@@ -383,7 +385,8 @@ def _held_against_xla(arch, shape, rec, xla, cfg, *,
             mem["argument_bytes"] - args_unread + INDEX_BYTES,
             mem["alias_bytes"] - alias_unread + INDEX_BYTES)
     peak, ref_peak = _peak(mem), _peak(x)
-    if arch in step_held or (arch, shape) in step_held:
+    by_step = arch in step_held or (arch, shape) in step_held
+    if by_step:
         per, unit, moved = 1, "step", executed_collectives(xla["hlo"])
     else:
         per = (rec.get("n_micro", 1) if spec.kind == "train" else 1) * \
@@ -400,10 +403,15 @@ def _held_against_xla(arch, shape, rec, xla, cfg, *,
           f"{traced.get('all-to-all', 0.0):.0f} B "
           f"({moved.get('all-to-all', 0.0):.0f} B), all-reduce "
           f"{traced.get('all-reduce', 0.0):.0f} B "
-          f"({moved.get('all-reduce', 0.0):.0f} B); argument bytes "
+          f"({moved.get('all-reduce', 0.0):.0f} B), reduce-scatter "
+          f"{traced.get('reduce-scatter', 0.0):.0f} B "
+          f"({moved.get('reduce-scatter', 0.0):.0f} B); argument bytes "
           f"{mem['argument_bytes']}, XLA's {x['argument_bytes']}")
     lo, hi = peak_bands.get((arch, shape)) or peak_bands[arch]
     assert lo <= peak / ref_peak <= hi
+    if by_step:
+        assert sum(traced.get(k, 0.0) for k in REDUCTIONS) <= \
+            GATHER_BAND[1] * sum(moved.get(k, 0.0) for k in REDUCTIONS)
     if (arch, shape) in alone_bands:
         lo, hi = alone_bands[arch, shape]
         assert lo <= gather / want <= hi

@@ -63,7 +63,11 @@ deepseek-v2-lite's smoke() train step under the train rules, a routing
 group a data rank, in float64: the loss and every gradient, the routing
 sort's backward keeping its scatter a partial sum
 (`launch.dryrun._scatter_strategy`) and the embedding's gradient a
-partial sum over the ids' split (`models.common.take_rows`).
+partial sum over the ids' split (`models.common.take_rows`).  On a
+("pod", "data") mesh of (2, 2), the MoE FFN of a decode step, its tokens
+split over both axes: the output and the gradients, the experts' input
+reduce-scattered over "data" before it is all-reduced over "pod", the
+all-reduce moving a shard (`models.common.shards_first`).
 
 The processes are started with `torch.multiprocessing` and joined with
 a deadline: a hang fails the test instead of holding the suite.
@@ -870,3 +874,102 @@ def _train_rank(rank, store_path, out_dir):
 def test_deepseek_train_step_keeps_the_routing_gradient_partial(tmp_path):
     for rank, said in enumerate(_spawn(_train_rank, 4, tmp_path)):
         assert said == "train", f"rank {rank}:\n{said}"
+
+
+class _Reductions(TorchDispatchMode):
+    """Keeps the kind and the elements of each all-reduce and
+    reduce-scatter's result on the local tensors, in order (DTensor's
+    own ops are handed back to it, as `CommDebugMode` does, so its
+    collectives are seen)."""
+
+    def __init__(self):
+        super().__init__()
+        self.results = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = func.name()
+        if kind in ("_c10d_functional::all_reduce",
+                    "_c10d_functional::reduce_scatter_tensor"):
+            self.results.append((kind.partition("::")[2], out.numel()))
+        return out
+
+
+def _pod_cases(rank, mesh):
+    """The MoE FFN (`models.moe.moe_ffn`) on a ("pod", "data") mesh of
+    (2, 2), as the 2x16x16 rules split a decode step: one routing group
+    whose tokens are split over both axes, the experts' weights split on
+    D over "data" (FSDP), the router too.  Inside `gspmd_choices`, as
+    the dry run runs it: the output and the gradients of the input and
+    the router against the plain path.  The experts' input, a partial
+    sum over both axes, is reduce-scattered onto D over "data" first and
+    then all-reduced over "pod" a shard at a time
+    (`models.common.shards_first`): the all-reduce's result holds half
+    of the whole tensor, not all of it."""
+    b, s, d, f, e = 8, 1, 8, 6, 4
+    cfg = moe.MoEConfig(num_experts=e, top_k=2, expert_d_ff=f,
+                        capacity_factor=2.0)
+    rng = np.random.default_rng(14)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape, dtype=np.float32))
+
+    x = randn(b, s, d)
+    p = {"router": randn(d, e, scale=2.0), "w_gate": randn(e, d, f),
+         "w_up": randn(e, d, f), "w_down": randn(e, f, d)}
+    act = common.ACTIVATIONS["silu"]
+    whole = {k: t.clone().requires_grad_(True) for k, t in
+             (("x", x), ("router", p["router"]))}
+    want, _ = moe.moe_ffn(whole["x"], {**p, "router": whole["router"]},
+                          cfg, act)
+    up = randn(*want.shape)
+    want_grads = torch.autograd.grad((want * up).sum(), list(whole.values()))
+    split = {"x": [Shard(0), Shard(0)], "router": [Replicate(), Shard(0)],
+             "w_gate": [Replicate(), Shard(1)],
+             "w_up": [Replicate(), Shard(1)],
+             "w_down": [Replicate(), Shard(2)]}
+    leaves = {k: distribute_tensor(t, mesh, split[k]).requires_grad_(True)
+              for k, t in whole.items()}
+    placed = {k: distribute_tensor(t, mesh, split[k]) for k, t in p.items()
+              if k != "router"}
+    seen = []
+    experts_input = moe._experts_input
+
+    def recorded(xe, w):
+        with _Reductions() as reductions:
+            out = experts_input(xe, w)
+        seen.append((xe.numel(), xe.placements, reductions.results))
+        return out
+
+    moe._experts_input = recorded
+    try:
+        with dryrun.gspmd_choices(), implicit_replication():
+            got, _ = moe.moe_ffn(leaves["x"],
+                                 {**placed, "router": leaves["router"]},
+                                 cfg, act)
+            grads = torch.autograd.grad(
+                (got * distribute_tensor(up, mesh, [Replicate()] * 2))
+                .sum(), list(leaves.values()))
+    finally:
+        moe._experts_input = experts_input
+    torch.testing.assert_close(got.full_tensor(), want, rtol=TOL, atol=TOL)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.full_tensor(), w, rtol=TOL, atol=TOL)
+    [(n, places, results)] = seen
+    assert places == (Partial(), Partial()), places
+    assert results == [("reduce_scatter_tensor", n // 2),
+                       ("all_reduce", n // 2)], (n, results)
+    return "pod"
+
+
+def _pod_rank(rank, store_path, out_dir):
+    _on_mesh(rank, store_path, out_dir, (2, 2), ("pod", "data"),
+             [_pod_cases])
+
+
+def test_experts_input_is_reduced_over_pod_a_shard_at_a_time(tmp_path):
+    for rank, said in enumerate(_spawn(_pod_rank, 4, tmp_path)):
+        assert said == "pod", f"rank {rank}:\n{said}"
